@@ -7,12 +7,20 @@ Phases:
   1. device   card name and power limit (nvidia-smi), CUDA availability
   2. build    nvcc-build every kernel under ray_tpu_torch/kernels/csrc
   3. kernels  each kernel against its plain PyTorch version over a grid of
-              shapes and dtypes, then timed at llama-7b prefill shapes beside
-              its bound, its plain version and one library call
+              shapes and dtypes, then timed beside its bound, its plain
+              version and one library call: flash forward and RMSNorm at
+              llama-7b prefill shapes, flash backward (dQ, dK/dV) and the
+              forward with lse at the gpt2-large training shape
   4. parity   llama-7b widths, 2 layers, f32: make_generate and
               InferenceEngine on the card vs make_generate on the CPU
-  5. generate full llama-7b, bf16, seeded random weights: make_generate
-  6. engine   full llama-7b, bf16: the continuous-batching engine with
+  5. train_parity  llama-7b widths, 2 layers, f32, remat "attn": loss and
+              every gradient on the card vs the CPU, then the params after
+              3 AdamW steps
+  6. train    bench.py's step: gpt2-large, B=13 x S=1024, bf16 compute, f32
+              master weights, remat "attn", AdamW(3e-4, wd 0.1, bf16 mu):
+              tokens/s, step ms, MFU, peak memory, launches per step
+  7. generate full llama-7b, bf16, seeded random weights: make_generate
+  8. engine   full llama-7b, bf16: the continuous-batching engine with
               prefix caching, chunked prefill and speculative decoding
 
 Prints progress lines, one `{"kernels": [...]}` line, the card line, and
@@ -24,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -31,11 +40,13 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-PHASES = ("device", "build", "kernels", "parity", "generate", "engine")
+PHASES = ("device", "build", "kernels", "parity", "train_parity", "train", "generate", "engine")
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, SXM
 H100_F32_FLOPS = 67e12     # CUDA-core f32 peak, SXM
 H100_BYTES_PER_S = 3.35e12
 TOL = {"bf16": 2e-2, "f32_flash": 1e-4, "f32_rmsnorm": 1e-5}
+# gpt2-large training shape of bench.py: B=13, H=20, S=1024, D=64.
+TRAIN_ATTN = (13, 20, 1024, 64)
 
 CARD = "unknown card"
 
@@ -52,12 +63,25 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def cuda_ms(fn, iters: int = 20):
+def cuda_ms(fn, iters: int = 20, graph: bool = True):
     """(device ms, eager ms) per call of `fn`. Device time replays `iters`
     calls captured in one CUDA graph, so host launch overhead is out of it;
-    eager time is the same loop launched from Python, host overhead in."""
+    eager time is the same loop launched from Python, host overhead in.
+    With graph=False only the eager time is taken (device ms is None)."""
     import torch
 
+    if not graph:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return None, start.elapsed_time(end) / iters
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -105,6 +129,25 @@ def compare(name: str, got, want, tol: float):
     return max_abs
 
 
+def _kernels() -> dict:
+    """name -> kernel wrapper; each wrapper counts its launches in `.launches`."""
+    from ray_tpu_torch.kernels.flash_bwd import flash_bwd_dkv, flash_bwd_dq
+    from ray_tpu_torch.kernels.flash_fwd import flash_fwd
+    from ray_tpu_torch.kernels.rmsnorm import rmsnorm_fwd
+
+    return {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv,
+            "rmsnorm": rmsnorm_fwd}
+
+
+def reset_launches() -> None:
+    for fn in _kernels().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _kernels().items()}
+
+
 # ---------------------------------------------------------------- kernels
 def phase_kernels(results: dict) -> None:
     import torch
@@ -146,6 +189,8 @@ def phase_kernels(results: dict) -> None:
     compare("flash main-path B=4 H=32 S=128 D=128 bf16 causal, strided v",
             flash_fwd(q, k, v, True, 128 ** -0.5)[0],
             flash_attention_plain(q, k, v, True, 128 ** -0.5), TOL["bf16"])
+
+    _check_flash_bwd(randn, dtypes)
 
     for dname, dt in dtypes.items():
         tol = TOL["bf16"] if dname == "bf16" else TOL["f32_rmsnorm"]
@@ -190,10 +235,12 @@ def phase_kernels(results: dict) -> None:
         **_times(lambda: rmsnorm_fwd(x, w), lambda: rmsnorm_plain(x, w),
                  lambda: F.rms_norm(x, (D,), w, 1e-6)),
     )
+    _time_flash_train_shape(results, randn)
     for r in results.values():
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"{r['name']} at {r['shape']}: kernel {r['ms']:.4f} ms (eager loop {r['eager_ms']:.4f}), "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"library {r['library_ms']:.4f} ms")
+            f"library {lib}")
 
     # The generate phase's own shapes: prefill attention and norms, decode norms.
     q, k, v = (randn(4, 32, 128, 128, dtype=torch.bfloat16) for _ in range(3))
@@ -212,7 +259,102 @@ def phase_kernels(results: dict) -> None:
 def _times(kernel, plain, library) -> dict:
     ms, eager_ms = cuda_ms(kernel)
     return dict(ms=ms, eager_ms=eager_ms, plain_ms=cuda_ms(plain, iters=5)[0],
-                library_ms=cuda_ms(library)[0])
+                library_ms=cuda_ms(library)[0] if library is not None else None)
+
+
+def _check_flash_bwd(randn, dtypes) -> None:
+    """dq, dk, dv of the two backward kernels against the plain backward."""
+    import torch
+
+    from ray_tpu_torch.kernels.flash_bwd import flash_bwd
+    from ray_tpu_torch.kernels.flash_fwd import flash_fwd
+    from ray_tpu_torch.ops.attention import flash_attention_bwd_plain
+
+    cases = [(1024, 1024, True), (1024, 1024, False), (200, 200, True), (64, 192, True)]
+    for D in (32, 64, 128, 256):
+        for dname, dt in dtypes.items():
+            tol = TOL["bf16"] if dname == "bf16" else TOL["f32_flash"]
+            for S, Skv, causal in cases:
+                q, do = randn(1, 2, S, D, dtype=dt), randn(1, 2, S, D, dtype=dt)
+                k, v = randn(1, 2, Skv, D, dtype=dt), randn(1, 2, Skv, D, dtype=dt)
+                o, lse = flash_fwd(q, k, v, causal, D ** -0.5, True)
+                got = flash_bwd(q, k, v, o, lse, do, causal, D ** -0.5)
+                torch.cuda.synchronize()
+                want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal, D ** -0.5)
+                for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                    compare(f"flash bwd {name} D={D} {dname} S={S} Skv={Skv} causal={causal}", a, w, tol)
+    # dO as autograd may hand it over: a transposed view, not contiguous.
+    B, H, S, D = 2, 4, 256, 64
+    q, k, v = (randn(B, H, S, D, dtype=torch.bfloat16) for _ in range(3))
+    do = randn(B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
+    o, lse = flash_fwd(q, k, v, True, D ** -0.5, True)
+    got = flash_bwd(q, k, v, o, lse, do, True, D ** -0.5)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do.contiguous(), True, D ** -0.5)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        compare(f"flash bwd {name} strided dO B={B} H={H} S={S} D={D} bf16", a, w, TOL["bf16"])
+
+
+def _time_flash_train_shape(results: dict, randn) -> None:
+    """The flash kernels at the gpt2-large training shape (bf16, causal):
+    dQ and dK/dV alone, their sum with Delta against the backward of
+    scaled_dot_product_attention, and the forward with lse."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.kernels.flash_bwd import flash_bwd, flash_bwd_dkv, flash_bwd_dq
+    from ray_tpu_torch.kernels.flash_fwd import flash_fwd
+    from ray_tpu_torch.ops.attention import flash_attention_bwd_plain, flash_attention_plain
+
+    B, H, S, D = TRAIN_ATTN
+    scale = D ** -0.5
+    q, k, v, do = (randn(B, H, S, D, dtype=torch.bfloat16) for _ in range(4))
+    o, lse = flash_fwd(q, k, v, True, scale, True)
+    delta = (do.float() * o.float()).sum(-1)
+    got = flash_bwd(q, k, v, o, lse, do, True, scale)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, True, scale)
+    errs = [compare(f"flash bwd {n} training shape", a, w, TOL["bf16"])
+            for n, a, w in zip(("dq", "dk", "dv"), got, want)]
+    del got, want
+    pairs = B * H * S * (S + 1) // 2  # unmasked (query, key) pairs
+    tile = B * H * S * D * 2          # one bf16 [B, H, S, D] tensor
+    rows = B * H * S * 4              # one f32 [B*H, S] row vector (lse, Delta)
+    plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, True, scale), iters=3)[0]
+
+    # The library's backward: scaled_dot_product_attention's, in an eager
+    # loop (autograd's backward is not captured in a graph here).
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    library_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
+                             graph=False)[1]
+    pair_ms = cuda_ms(lambda: flash_bwd(q, k, v, o, lse, do, True, scale))[0]
+    for name, fn, flops, nbytes, err in (
+        ("flash_bwd_dq", lambda: flash_bwd_dq(q, k, v, do, lse, delta, True, scale),
+         6 * D * pairs, 5 * tile + 2 * rows, errs[0]),
+        ("flash_bwd_dkv", lambda: flash_bwd_dkv(q, k, v, do, lse, delta, True, scale),
+         8 * D * pairs, 6 * tile + 2 * rows, max(errs[1:])),
+    ):
+        ops_s, bytes_s = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+        ms, eager_ms = cuda_ms(fn)
+        results[name] = dict(
+            name=name, route="cuda", source="ray_tpu_torch/kernels/csrc/flash_bwd.cu",
+            replaces="ray_tpu/ops/attention.py:477" if name == "flash_bwd_dq" else "ray_tpu/ops/attention.py:500",
+            max_abs_err=err, bound_ms=max(ops_s, bytes_s) * 1e3,
+            bound_by="operations" if ops_s >= bytes_s else "bytes",
+            shape=f"B={B} H={H} S={S} D={D} bf16 causal", ms=ms, eager_ms=eager_ms,
+            plain_ms=plain_ms, library_ms=library_bwd_ms, pair_ms=pair_ms,
+        )
+    log(f"flash backward at the training shape B={B} H={H} S={S} D={D} bf16 causal: Delta + dQ + dK/dV "
+        f"{pair_ms:.4f} ms, scaled_dot_product_attention backward {library_bwd_ms:.4f} ms (eager loop), "
+        f"plain {plain_ms:.4f} ms (plain computes dq, dk and dv together: it is the plain_ms of both rows)")
+
+    ops_s = 4 * D * pairs / H100_BF16_FLOPS
+    bytes_s = (4 * tile + rows) / H100_BYTES_PER_S  # q, k, v read; o and lse written
+    t = _times(lambda: flash_fwd(q, k, v, True, scale, True),
+               lambda: flash_attention_plain(q, k, v, True, scale, return_lse=True),
+               lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    log(f"flash_fwd with lse at the training shape: kernel {t['ms']:.4f} ms, bound "
+        f"{max(ops_s, bytes_s) * 1e3:.4f} ms ({'operations' if ops_s >= bytes_s else 'bytes'}), plain "
+        f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms (scaled_dot_product_attention, no lse)")
 
 
 # ----------------------------------------------------------------- parity
@@ -281,6 +423,133 @@ def phase_parity() -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ train
+def _update_rel_diff(after_a: dict, after_b: dict, before: dict) -> float:
+    """||(a - p0) - (b - p0)|| / ||b - p0|| over every param: how far two
+    runs' total updates differ, relative to the update."""
+    num = sum(float((after_a[k].detach().cpu() - after_b[k].detach()).double().square().sum())
+              for k in before)
+    den = sum(float((after_b[k].detach() - before[k]).double().square().sum()) for k in before)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def phase_train_parity(launches: dict) -> None:
+    """llama-7b widths, 2 layers, f32, TF32 off, remat "attn": one step's
+    loss and every gradient on the card (kernels) against the CPU (plain),
+    then the params after 3 AdamW steps (bench.py's hyperparameters)."""
+    import torch
+
+    from ray_tpu_torch.models.gpt import init_params, llama_7b, make_train_step
+    from ray_tpu_torch.optim import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama_7b(n_layers=2, dtype=torch.float32, remat=True, remat_policy="attn")
+    cpu = init_params(cfg, seed=1, device="cpu")
+    start = {k: v.clone() for k, v in cpu.items()}
+    gpu = {k: v.to("cuda") for k, v in cpu.items()}
+    tokens = torch.randint(0, cfg.vocab_size, (2, 129), generator=torch.Generator().manual_seed(5))
+    hyper = dict(lr=3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16)
+    steps = {"cpu": make_train_step(cfg, AdamW(cpu.values(), **hyper)),
+             "gpu": make_train_step(cfg, AdamW(gpu.values(), **hyper))}
+    batches = {"cpu": {"tokens": tokens}, "gpu": {"tokens": tokens.cuda()}}
+    t0 = time.perf_counter()
+    _, m_cpu = steps["cpu"](cpu, batches["cpu"])
+    t_cpu = time.perf_counter() - t0
+    reset_launches()
+    _, m_gpu = steps["gpu"](gpu, batches["gpu"])
+    torch.cuda.synchronize()
+    first = read_launches()
+    loss_d = abs(m_gpu["loss"].item() - m_cpu["loss"].item()) / abs(m_cpu["loss"].item())
+    worst, worst_name = 0.0, ""
+    for k, p in cpu.items():
+        if p.grad is None:  # RMSNorm biases: unused on both sides
+            if gpu[k].grad is not None:
+                raise AssertionError(f"train_parity: {k} has a gradient on the card only")
+            continue
+        rel = (gpu[k].grad.cpu() - p.grad).abs().max().item() / max(p.grad.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, k
+    log(f"train_parity f32 llama-7b widths L=2 B=2 S=128 remat=attn: loss gpu {m_gpu['loss'].item():.6f} "
+        f"cpu {m_cpu['loss'].item():.6f} (rel diff {loss_d:.2e}); grads: worst max|d|/max|ref| "
+        f"{worst:.2e} ({worst_name}); grad_norm gpu {m_gpu['grad_norm'].item():.6f} cpu "
+        f"{m_cpu['grad_norm'].item():.6f}; one CPU step {t_cpu:.1f} s; launches in the step {first}")
+    if loss_d > 1e-5 or worst > 1e-4:
+        raise AssertionError(f"train_parity: loss rel diff {loss_d:.2e} (tol 1e-5) or grad {worst_name} "
+                             f"rel diff {worst:.2e} (tol 1e-4)")
+    for _ in range(2):
+        steps["cpu"](cpu, batches["cpu"])
+        steps["gpu"](gpu, batches["gpu"])
+    torch.cuda.synchronize()
+    launches["train_parity"] = read_launches()
+    upd = _update_rel_diff(gpu, cpu, start)
+    max_d = max((gpu[k].detach().cpu() - cpu[k].detach()).abs().max().item() for k in cpu)
+    log(f"train_parity after 3 AdamW steps: ||update gpu - update cpu|| / ||update cpu|| = {upd:.2e}, "
+        f"max |param gpu - param cpu| = {max_d:.2e} (lr {hyper['lr']}); launches over the 3 steps "
+        f"{launches['train_parity']}")
+    if upd > 1e-3:
+        raise AssertionError(f"train_parity: params after 3 steps differ by {upd:.2e} of the update (tol 1e-3)")
+    L = cfg.n_layers
+    want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    if any(first[k] != n for k, n in want.items()) or first["rmsnorm"] <= 0:
+        raise AssertionError(f"train_parity launches per step {first}, want {want} and rmsnorm > 0")
+    del cpu, gpu, steps
+    torch.cuda.empty_cache()
+
+
+def phase_train(launches: dict) -> None:
+    """bench.py's training step on the port: gpt2-large, B=13 x S=1024."""
+    import torch
+
+    from ray_tpu_torch.models.gpt import gpt2_large, init_params, make_train_step
+    from ray_tpu_torch.optim import AdamW
+
+    B, S = 13, 1024
+    cfg = gpt2_large(max_seq=S, attn_impl="flash", remat=True, remat_policy="attn")
+    params = init_params(cfg, seed=0, device="cuda")  # f32 master weights
+    step = make_train_step(cfg, AdamW(params.values(), lr=3e-4, weight_decay=0.1,
+                                      mu_dtype=torch.bfloat16))
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    batch = {"tokens": tokens}
+    t0 = time.perf_counter()
+    _, metrics = step(params, batch)
+    first_loss = metrics["loss"].item()
+    step(params, batch)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    n_steps, L = 10, cfg.n_layers
+    per_step = []
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        before = read_launches()
+        _, metrics = step(params, batch)
+        per_step.append({k: n - before[k] for k, n in read_launches().items()})
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_steps
+    launches["train"] = read_launches()
+    final_loss = metrics["loss"].item()
+    tok_s = B * S / dt
+    mfu = cfg.flops_per_token(S) * tok_s / H100_BF16_FLOPS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"train gpt2-large B={B} S={S} bf16 compute, f32 master, remat=attn, AdamW bf16 mu: "
+        f"{tok_s:.1f} tokens/s, step {dt * 1e3:.2f} ms, train_mfu {mfu:.4f} (of 989 TFLOP/s bf16), "
+        f"peak memory {peak:.2f} GiB, loss {first_loss:.4f} (step 1) -> {final_loss:.4f} (step 12), "
+        f"grad_norm {metrics['grad_norm'].item():.4f}, {cfg.n_params / 1e6:.1f} M params, "
+        f"warm-up 2 steps {warm:.1f} s; launches over {n_steps} steps {launches['train']}")
+    if not (math.isfinite(final_loss) and final_loss < first_loss):
+        raise AssertionError(f"train: loss {first_loss} -> {final_loss} is not finite and falling")
+    want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L, "rmsnorm": 0}
+    for i, n in enumerate(per_step):
+        if n != want:
+            raise AssertionError(f"train step {i}: launches {n}, want {want}")
+    _profile(f"train gpt2-large B={B} S={S}, one step", lambda: step(params, batch))
+    del params, step
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------- generate/engine
 def _llama_params():
     import torch
@@ -310,13 +579,13 @@ def phase_generate(cfg, params, launches: dict) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gen = make_generate(cfg, N)
-    flash_fwd.launches = rmsnorm_fwd.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     toks = gen(params, prompt)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches["generate"] = read_launches()
     nf, nr = flash_fwd.launches, rmsnorm_fwd.launches
-    launches["generate"] = {"flash_fwd": nf, "rmsnorm": nr}
     L = cfg.n_layers
     log(f"generate llama-7b bf16 B={B} prompt={S0} new={N}: {B * N / wall:.1f} tokens/s, "
         f"{wall * 1e3:.1f} ms wall, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -341,7 +610,9 @@ def _profile(label: str, fn) -> None:
         torch.cuda.synchronize()
     spans, by_name = [], {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # User annotations (e.g. "Optimizer.step#AdamW.step") also appear on
+        # the device timeline; they span idle gaps and are not kernels.
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             spans.append((e.time_range.start, e.time_range.end))
             by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     if not spans:
@@ -385,7 +656,7 @@ def phase_engine(cfg, params, launches: dict) -> None:
         cfg, params, EngineOptions(num_blocks=512, block_size=16, max_num_seqs=8), device="cuda")
     forwards = {"n": 0}  # paged forwards (prefill chunks, decode and verify steps)
     _finite_guard(engine, forwards)
-    flash_fwd.launches = rmsnorm_fwd.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     rids = [engine.submit(p, max_tokens) for p in prompts + [first_shared]]
     steps = 0
@@ -424,7 +695,7 @@ def phase_engine(cfg, params, launches: dict) -> None:
     sst = spec.stats()
     torch.cuda.synchronize()
     nf, nr, n_fwd = flash_fwd.launches, rmsnorm_fwd.launches, forwards["n"]
-    launches["engine"] = {"flash_fwd": nf, "rmsnorm": nr}
+    launches["engine"] = read_launches()
 
     def engine_burst():
         for p in prompts[:4]:
@@ -490,6 +761,10 @@ def main(argv=None) -> int:
     if "parity" in phases:
         phase_parity()
     launches: dict = {}  # path -> kernel -> launches in that path's run
+    if "train_parity" in phases:
+        phase_train_parity(launches)
+    if "train" in phases:
+        phase_train(launches)
     if "generate" in phases or "engine" in phases:
         cfg, params = _llama_params()
         if "generate" in phases:
@@ -506,8 +781,10 @@ def main(argv=None) -> int:
         if r["launches"] <= 0:
             raise AssertionError(f"kernel {name} was never launched on the main path")
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results.values()]}), flush=True)
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    extra = ("pair_ms",)  # the backward rows: Delta + dQ + dK/dV, against the library's backward
+    print(json.dumps({"kernels": [{**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
+                                  for r in results.values()]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -118,6 +118,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, f, i, p,             # causal, scale, dtype code, stream
     ]
     lib.rt_flash_fwd.restype = i
+    strides = [ll] * 12         # (batch, head, seq) strides of q, k, v, dO
+    tail = [i, f, i, p]         # causal, scale, dtype code, stream
+    lib.rt_flash_bwd_dq.argtypes = [p] * 7 + [i] * 5 + strides + tail  # q k v dO lse Δ dq
+    lib.rt_flash_bwd_dq.restype = i
+    lib.rt_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 5 + strides + tail  # ... dk dv
+    lib.rt_flash_bwd_dkv.restype = i
     lib.rt_rmsnorm.argtypes = [p, p, p, i, i, ll, f, i, p]  # x, w, y, N, D, row stride, eps, dtype, stream
     lib.rt_rmsnorm.restype = i
     lib.rt_error_string.argtypes = [i]

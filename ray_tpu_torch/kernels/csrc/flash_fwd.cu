@@ -31,15 +31,12 @@
 // need full f32 products).
 // Speed work (wgmma, TMA, warp specialisation, cp.async pipelining) is later.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "flash_common.cuh"
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+namespace {
 
 struct Strides {
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs;
@@ -48,41 +45,6 @@ struct Strides {
 // ------------------------------------------------------------ bf16 path
 constexpr int kBQ = 64;   // q rows per block, 16 per warp
 constexpr int kBK = 64;   // key/value rows per tile
-constexpr int kPad = 8;   // shared-memory row padding (elements)
-
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a * b, m16n8k16, A row-major bf16, B col-major bf16, f32 accumulate.
-__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// rows x D tile from global (row stride `stride` elements) into shared
-// memory [rows][D + kPad]; rows at or past `valid` are zero-filled so that
-// masked probabilities never meet NaN garbage.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile_bf16(uint16_t* dst, const uint16_t* src,
-                                               long long stride, int valid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = val;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -351,16 +313,11 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
                    int S, int Skv, const Strides& st, int causal, float scale, int dtype,
                    cudaStream_t stream) {
-  cudaError_t err = cudaSuccess;
+  cudaError_t err;
   if (dtype == 1) {
     const size_t smem = size_t(kBQ + 2 * kBK) * (D + kPad) * sizeof(uint16_t);
-    static bool configured = false;  // set once, before any graph capture
-    if (!configured) {
-      err = cudaFuncSetAttribute(flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 int(smem));
-      if (err != cudaSuccess) return err;
-      configured = true;
-    }
+    static bool configured = false;
+    if ((err = allow_smem(flash_fwd_bf16<D>, smem, configured)) != cudaSuccess) return err;
     const dim3 grid((S + kBQ - 1) / kBQ, B * H);
     flash_fwd_bf16<D><<<grid, kThreads, smem, stream>>>(
         static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
@@ -371,12 +328,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
         (size_t(kBQ32) * D + size_t(kBK32) * (D + 1) + size_t(kBK32) * D + kWarps * 8 * 32) *
         sizeof(float);
     static bool configured = false;
-    if (!configured) {
-      err = cudaFuncSetAttribute(flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 int(smem));
-      if (err != cudaSuccess) return err;
-      configured = true;
-    }
+    if ((err = allow_smem(flash_fwd_f32<D>, smem, configured)) != cudaSuccess) return err;
     const dim3 grid((S + kBQ32 - 1) / kBQ32, B * H);
     flash_fwd_f32<D><<<grid, kThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),

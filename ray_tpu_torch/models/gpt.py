@@ -1,11 +1,18 @@
-"""GPT model family (GPT-2 / GPT-J / Llama-style), inference half, in
-PyTorch — the counterpart of `ray_tpu/models/gpt.py`.
+"""GPT model family (GPT-2 / GPT-J / Llama-style) in PyTorch — the
+counterpart of `ray_tpu/models/gpt.py`: training (`forward` with per-block
+remat, `loss_fn`, `make_train_step`) and serving.
 
 Params are a plain dict of tensors in the reference's stacked `[L, ...]`
 layout and keys (`models/convert.py` turns a JAX param pytree into one), so
 the two packages compare like with like. Each block casts its layer's
 weights to `cfg.dtype` before use (a no-op when they are stored in it); the
-final norm weight is used as stored.
+final norm weight is used as stored. Training keeps f32 master weights and
+computes in `cfg.dtype`, as the reference does.
+
+Training: attention runs the flash kernels forward and backward, every
+RMSNorm the RMSNorm kernel, through autograd (`ops/attention.py`,
+`ops/norms.py`); `cfg.remat` checkpoints each block with
+`torch.utils.checkpoint` under the policy `_remat_policy` picks.
 
 Two serving paths:
   * dense KV cache: `prefill` + `decode_step`, driven by `make_generate`;
@@ -23,11 +30,18 @@ buffers to each call, so nothing can observe the old contents either way.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from ..device import resolve_device, resolve_dtype
 from ..ops import attention_reference, flash_attention, layernorm, rmsnorm, rope_frequencies, rope_rotate
@@ -60,7 +74,9 @@ class GPTConfig:
     # Execution knobs.
     dtype: Any = torch.bfloat16
     attn_impl: str = "flash"         # flash | ref (ring | ulysses: not ported)
-    remat: bool = True               # training knobs, unused by inference
+    remat: bool = True
+    # None (save nothing) | "dots" (save matmul outputs) | "attn" (save the
+    # flash forward's outputs, so backward never re-runs it).
     remat_policy: Optional[str] = None
     sp_axis: str = "sp"
 
@@ -299,17 +315,122 @@ def _logits(params, x, cfg: GPTConfig):
     return x @ head.to(cfg.dtype)
 
 
+def _remat_block(cfg: GPTConfig, rope_tables, layer, x, positions):
+    """A block on x with `layer`'s master weights, cast inside (so remat
+    recomputes the cast, as the reference's checkpointed block does)."""
+    p = {k: w.to(cfg.dtype) for k, w in layer.items()}
+    return _block(cfg, rope_tables, x, p, positions)[0]
+
+
 def forward(params, tokens, cfg: GPTConfig, positions=None):
-    """tokens [B, S] (long) -> logits [B, S, V] in cfg.dtype."""
+    """tokens [B, S] (long) -> logits [B, S, V] in cfg.dtype. With
+    `cfg.remat` and grad enabled, each block is checkpointed under
+    `_remat_policy(cfg)`."""
     _check_dense(cfg)
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device)
     x = _embed(params, tokens, cfg, positions)
     rope_tables = _rope_tables(cfg, tokens.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    context_fn = _remat_policy(cfg) if remat else None
+    # unbind, not params[k][i]: its backward stacks the L layer gradients
+    # once, where indexing would add a zero-padded [L, ...] gradient per layer.
+    stacks = {k: params[k].unbind(0) for k in _LAYER_KEYS if k in params}
     for i in range(cfg.n_layers):
-        x, _, _ = _block(cfg, rope_tables, x, _layer(params, cfg, i), positions)
+        layer = {k: ws[i] for k, ws in stacks.items()}
+        if remat:
+            x = checkpoint(_remat_block, cfg, rope_tables, layer, x, positions,
+                           use_reentrant=False, context_fn=context_fn)
+        else:
+            x = _remat_block(cfg, rope_tables, layer, x, positions)
     return _logits(params, x, cfg)
+
+
+# Ops whose outputs a selective-checkpoint policy saves. "dots" follows the
+# reference's `dots_with_no_batch_dims_saveable`: matmuls without a batch
+# dim (every projection; the model's [B, S, E] @ [E, F] products dispatch
+# as `mm`). "attn" saves the flash forward op's (o, lse), as the reference's
+# `save_only_these_names("attn_out", "attn_lse")`.
+_SAVED_OPS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default),
+    "attn": (torch.ops.ray_tpu_torch.flash_attention.default,),
+}
+
+
+def _remat_policy(cfg: GPTConfig):
+    """The `context_fn` of `torch.utils.checkpoint` for cfg.remat_policy:
+    None saves nothing (the block is recomputed from its input); "dots" and
+    "attn" save their ops' outputs and recompute the rest."""
+    if cfg.remat_policy not in (None, "dots", "attn"):
+        raise ValueError(f"unknown remat_policy: {cfg.remat_policy!r}")
+    if cfg.remat_policy == "attn" and cfg.attn_impl != "flash":
+        # Only the flash path runs the saved op; elsewhere the policy would
+        # match nothing and silently rematerialize everything.
+        raise ValueError(
+            "remat_policy='attn' saves flash-attention residuals; it requires "
+            f"attn_impl='flash' (got {cfg.attn_impl!r})"
+        )
+    if cfg.remat_policy is None:
+        return noop_context_fn
+    saved = _SAVED_OPS[cfg.remat_policy]
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def _parse_batch(batch):
+    """{"tokens": [B,S+1]} or {"inputs","targets"} -> (inputs, targets, mask)."""
+    if "inputs" in batch:
+        return batch["inputs"], batch["targets"], batch.get("mask")
+    tokens = batch["tokens"]
+    mask = batch.get("mask")
+    return tokens[:, :-1], tokens[:, 1:], (mask[:, 1:] if mask is not None else None)
+
+
+def _ce_loss(logits, targets, mask):
+    """Mean next-token cross-entropy (f32), optionally padding-masked."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, targets.long()[..., None])[..., 0]
+    if mask is not None:
+        m = mask.float()
+        return -(ll * m).sum() / m.sum().clamp_min(1.0)
+    return -ll.mean()
+
+
+def loss_fn(params, batch, cfg: GPTConfig):
+    """batch: {"tokens": [B, S+1]} or {"inputs", "targets"[, "mask"]} ->
+    mean next-token cross-entropy (f32). The reference adds the MoE aux
+    loss, which is 0 for the dense configs (MoE is not ported)."""
+    inputs, targets, mask = _parse_batch(batch)
+    return _ce_loss(forward(params, inputs, cfg), targets, mask)
+
+
+def optax_global_norm(tensors):
+    """sqrt of the sum of squares of every element, in f32."""
+    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+
+
+def make_train_step(cfg: GPTConfig, optimizer) -> Callable:
+    """Returns `step(params, batch) -> (params, metrics)` with metrics
+    {"loss", "grad_norm"} (0-dim f32 tensors; reading them synchronizes).
+    `optimizer` is a torch optimizer over `params.values()` (the port's
+    `optim.AdamW` for the reference's optax.adamw). The params are updated
+    IN PLACE: the reference donates its state to the step."""
+
+    def step(params, batch):
+        for p in params.values():
+            p.requires_grad_(True)
+            p.grad = None
+        loss = loss_fn(params, batch, cfg)
+        loss.backward()
+        gnorm = optax_global_norm(p.grad for p in params.values() if p.grad is not None)
+        optimizer.step()
+        return params, {"loss": loss.detach(), "grad_norm": gnorm.detach()}
+
+    return step
 
 
 # ---------------------------------------------------------------- generation

@@ -1,6 +1,7 @@
 from .attention import (
     attention_reference,
     flash_attention,
+    flash_attention_bwd_plain,
     flash_attention_plain,
     flash_attention_with_stats,
 )
@@ -10,6 +11,7 @@ from .rope import rope_frequencies, rope_rotate
 __all__ = [
     "attention_reference",
     "flash_attention",
+    "flash_attention_bwd_plain",
     "flash_attention_plain",
     "flash_attention_with_stats",
     "layernorm",

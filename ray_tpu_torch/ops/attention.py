@@ -1,9 +1,19 @@
-"""Attention: the plain reference and the flash-attention wrapper.
+"""Attention: the plain reference, the flash-attention wrappers and their
+gradient.
 
-`flash_attention` runs the hand-written CUDA kernel
-(`kernels/csrc/flash_fwd.cu`) on CUDA tensors and `flash_attention_plain`
-on CPU tensors. Ring and Ulysses context parallelism are not ported yet
-(see ROADMAP.md).
+`flash_attention` runs the hand-written CUDA kernels on CUDA tensors
+(`kernels/csrc/flash_fwd.cu` forward, `kernels/csrc/flash_bwd.cu` dQ and
+dK/dV backward) and the plain versions on CPU tensors
+(`flash_attention_plain`, `flash_attention_bwd_plain`). Ring and Ulysses
+context parallelism are not ported yet (see ROADMAP.md).
+
+When a gradient is wanted the forward runs as one custom op,
+`ray_tpu_torch::flash_attention`, whose outputs are (o, lse) and whose
+backward is the flash backward against the saved (q, k, v, o, lse) — the
+reference's custom VJPs `_flash` and `_flash_stats`. Being one op, its
+outputs can be saved by a selective-checkpoint policy (`remat_policy=
+"attn"` in `models/gpt.py`), so the forward runs once per step. lse is
+non-differentiable on every device, as the reference stop-gradients it.
 
 Shapes follow [batch, heads, seq, head_dim] throughout. Causal rows are
 END-aligned with the keys: query i sits at position i + (Skv - S), which
@@ -20,14 +30,17 @@ import torch
 _NEG_INF = -1e30
 
 
+def _visible(S: int, Skv: int, device):
+    """[S, Skv] bool: key j is visible to query i (end-aligned causal)."""
+    qpos = torch.arange(S, device=device)[:, None] + (Skv - S)
+    return qpos >= torch.arange(Skv, device=device)[None, :]
+
+
 def _causal_logits(q, k, causal: bool, scale: float):
     """f32 logits [B, H, S, Skv] with the end-aligned causal mask."""
-    S, Skv = q.shape[-2], k.shape[-2]
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if causal:
-        qpos = torch.arange(S, device=q.device)[:, None] + (Skv - S)
-        kpos = torch.arange(Skv, device=q.device)[None, :]
-        logits = logits.masked_fill(qpos < kpos, _NEG_INF)
+        logits = logits.masked_fill(~_visible(q.shape[-2], k.shape[-2], q.device), _NEG_INF)
     return logits
 
 
@@ -49,22 +62,86 @@ def flash_attention_plain(q, k, v, causal: bool = True, sm_scale: Optional[float
 attention_reference = flash_attention_plain
 
 
-def _flash(q, k, v, causal, sm_scale, return_lse):
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool, scale: float):
+    """(dq, dk, dv) of o = flash(q, k, v) for the output cotangent `do`, in
+    plain torch with the backward kernels' arithmetic step by step
+    (`_flash_bwd_pallas`): Δ = rowsum(dO∘O) in f32; P = exp(S·scale − lse),
+    masked to 0; dS = P∘(dP − Δ) cast to the input dtype; P cast to dO's
+    dtype for dV; the scale applied last. lse is the forward's, B*H*S f32
+    values (unpadded)."""
+    B, H, S, _ = q.shape
+    f = torch.float32
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - lse.reshape(B, H, S, 1))
+    if causal:
+        p = torch.where(_visible(S, k.shape[-2], q.device), p, 0.0)
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = (p * (dp - delta)).to(q.dtype)
+    dq = (torch.matmul(ds.to(f), k.float()) * scale).to(q.dtype)
+    dk = (torch.matmul(ds.to(f).transpose(-1, -2), q.float()) * scale).to(k.dtype)
+    dv = torch.matmul(p.to(do.dtype).to(f).transpose(-1, -2), do.float()).to(v.dtype)
+    return dq, dk, dv
+
+
+def _flash_fwd(q, k, v, causal: bool, scale: float, return_lse: bool):
+    """Forward with (B*H, 1, S) lse or None: kernel on CUDA, plain on CPU."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, sm_scale, return_lse)
+        res = flash_attention_plain(q, k, v, causal, scale, return_lse)
+        return res if return_lse else (res, None)
     from ..kernels.flash_fwd import flash_fwd
 
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     out, lse = flash_fwd(q, k, v, causal, scale, return_lse)
-    return (out, lse.reshape(q.shape[0] * q.shape[1], 1, q.shape[2])) if return_lse else out
+    return out, (lse.view(q.shape[0] * q.shape[1], 1, q.shape[2]) if return_lse else None)
+
+
+@torch.library.custom_op("ray_tpu_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                       scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The differentiable flash forward: (o, lse)."""
+    return _flash_fwd(q, k, v, causal, scale, True)
+
+
+def _flash_setup_context(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal, ctx.scale = causal, scale
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_backward(ctx, g_o, _g_lse):
+    """The flash backward: the dQ and dK/dV kernels on CUDA tensors, the
+    plain version on CPU tensors."""
+    q, k, v, o, lse = ctx.saved_tensors
+    if q.device.type == "cpu":
+        dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, g_o, ctx.causal, ctx.scale)
+    else:
+        from ..kernels.flash_bwd import flash_bwd
+
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, g_o, ctx.causal, ctx.scale)
+    return dq, dk, dv, None, None
+
+
+flash_attention_op.register_autograd(_flash_backward, setup_context=_flash_setup_context)
+
+
+def _flash(q, k, v, causal, sm_scale, return_lse):
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out, lse = flash_attention_op(q, k, v, causal, scale)
+    else:  # serving: no residuals to keep, and lse only when asked for
+        out, lse = _flash_fwd(q, k, v, causal, scale, return_lse)
+    return (out, lse) if return_lse else out
 
 
 def flash_attention(q, k, v, causal: bool = True, sm_scale: Optional[float] = None):
-    """Blockwise online-softmax attention (forward only: this port serves)."""
+    """Blockwise online-softmax attention, differentiable."""
     return _flash(q, k, v, causal, sm_scale, False)
 
 
 def flash_attention_with_stats(q, k, v, causal: bool = True, sm_scale: Optional[float] = None):
     """`flash_attention` that also returns the f32 per-row logsumexp,
-    UNPADDED as (B*H, 1, S) — the reference's off-TPU shape. Forward only."""
+    UNPADDED as (B*H, 1, S) — the reference's off-TPU shape. lse is not
+    differentiable: use it for logging, not as a loss term."""
     return _flash(q, k, v, causal, sm_scale, True)

@@ -39,6 +39,7 @@ def test_importing_the_port_loads_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch, ray_tpu_torch.ops, ray_tpu_torch.models, ray_tpu_torch.models.convert\n"
         "import ray_tpu_torch.serve.engine, ray_tpu_torch.kernels.build\n"
         "import ray_tpu_torch.kernels.flash_fwd, ray_tpu_torch.kernels.rmsnorm\n"
+        "import ray_tpu_torch.kernels.flash_bwd, ray_tpu_torch.optim\n"
         "new = set(sys.modules) - before\n"
         f"print(sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}))\n"
     )

@@ -15,9 +15,18 @@ import pytest
 import torch
 
 from ray_tpu_torch.kernels import build
+from ray_tpu_torch.kernels.flash_bwd import flash_bwd, flash_bwd_dkv, flash_bwd_dq
 from ray_tpu_torch.kernels.flash_fwd import flash_fwd
 from ray_tpu_torch.kernels.rmsnorm import rmsnorm_fwd
-from ray_tpu_torch.ops import flash_attention, flash_attention_plain, rmsnorm, rmsnorm_plain
+from ray_tpu_torch.models import gpt as tg
+from ray_tpu_torch.ops import (
+    flash_attention,
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+    rmsnorm,
+    rmsnorm_plain,
+)
+from ray_tpu_torch.optim import AdamW
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
@@ -91,6 +100,94 @@ def test_rmsnorm_kernel_reads_row_strided_input(cuda):
                                atol=2e-2, rtol=2e-2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("S,Skv,causal", [(256, 256, True), (256, 256, False), (200, 200, True),
+                                          (1, 128, True), (64, 192, True)])
+def test_flash_bwd_kernels_match_plain(cuda, dtype, D, S, Skv, causal):
+    q = _randn((2, 3, S, D), dtype, cuda, 10)
+    k = _randn((2, 3, Skv, D), dtype, cuda, 11)
+    v = _randn((2, 3, Skv, D), dtype, cuda, 12)
+    do = _randn((2, 3, S, D), dtype, cuda, 13)
+    o, lse = flash_fwd(q, k, v, causal, D ** -0.5, return_lse=True)
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    got = flash_bwd(q, k, v, o, lse, do, causal, D ** -0.5)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal, D ** -0.5)
+    tol = TOL[dtype]
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        torch.testing.assert_close(a.float(), w.float(), atol=tol, rtol=tol, msg=f"d{name}")
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernels_read_strided_inputs(cuda):
+    """dO as autograd may hand it in (a transposed view), q/k/v as views of
+    one projection."""
+    qkv = _randn((2, 100, 3, 4, 64), torch.bfloat16, cuda, 14)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    do = _randn((2, 100, 4, 64), torch.bfloat16, cuda, 15).transpose(1, 2)
+    assert not do.is_contiguous()
+    o, lse = flash_fwd(q, k, v, True, 0.125, return_lse=True)
+    got = flash_bwd(q, k, v, o, lse, do, True, 0.125)
+    want = flash_attention_bwd_plain(*(t.contiguous() for t in (q, k, v, o)), lse, do.contiguous(),
+                                     True, 0.125)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.float(), w.float(), atol=2e-2, rtol=2e-2)
+
+
+def _tiny_llama(**kw):
+    # d_head 32: the kernels take head dims 32..256.
+    return tg.GPTConfig(vocab_size=64, n_layers=2, d_model=64, n_heads=2, d_head=32, d_mlp=128,
+                        max_seq=64, norm="rmsnorm", activation="swiglu", pos="rotary", rotary_dim=32,
+                        tie_embeddings=False, dtype=torch.float32, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat_policy", [None, "attn"])
+def test_model_grads_on_the_card_match_the_cpu(cuda, remat_policy):
+    """Every gradient of the model through the kernels (flash forward and
+    backward, RMSNorm) against the same model on the CPU (plain ops)."""
+    cfg = _tiny_llama(remat=True, remat_policy=remat_policy)
+    cpu = tg.init_params(cfg, seed=0, device="cpu")
+    gpu = {k: v.to(cuda) for k, v in cpu.items()}
+    tokens = torch.randint(0, cfg.vocab_size, (2, 49), generator=torch.Generator().manual_seed(1))
+    counts = (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches, rmsnorm_fwd.launches)
+    losses = {}
+    for name, params in (("cpu", cpu), ("gpu", gpu)):
+        for p in params.values():
+            p.requires_grad_(True)
+        losses[name] = tg.loss_fn(params, {"tokens": tokens.to(params["w_qkv"].device)}, cfg)
+        losses[name].backward()
+    torch.cuda.synchronize()
+    after = (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches, rmsnorm_fwd.launches)
+    assert all(b > a for a, b in zip(counts, after)), (counts, after)
+    torch.testing.assert_close(losses["gpu"].cpu(), losses["cpu"], atol=1e-5, rtol=1e-5)
+    for k, p in cpu.items():
+        if k.endswith("_b") and k.startswith("ln"):
+            continue  # RMSNorm ignores its biases: no gradient on either side
+        want, got = p.grad, gpu[k].grad.cpu()
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 1e-4 * scale, k
+
+
+@pytest.mark.cuda
+def test_attn_remat_runs_flash_forward_once_per_layer(cuda):
+    cfg = _tiny_llama(remat=True, remat_policy="attn")
+    params = tg.init_params(cfg, seed=0, device=cuda)
+    step = tg.make_train_step(cfg, AdamW(params.values(), lr=1e-3, mu_dtype=torch.bfloat16))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 65), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(2))
+    flash_fwd.launches = flash_bwd_dq.launches = flash_bwd_dkv.launches = 0
+    _, metrics = step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches) == (L, L, L)
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+
+
 def test_wrappers_refuse_cpu_tensors():
     x = torch.zeros(1, 2, 8, 64)
     with pytest.raises(ValueError, match="CUDA"):
@@ -104,3 +201,12 @@ def test_build_raises_without_nvcc(monkeypatch):
     monkeypatch.setattr(build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         build._nvcc()
+
+
+def test_bwd_wrappers_refuse_cpu_tensors():
+    x = torch.zeros(1, 2, 8, 64)
+    stats = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_bwd_dq(x, x, x, x, stats, stats, True, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_bwd_dkv(x, x, x, x, stats, stats, True, 0.125)
