@@ -5,12 +5,17 @@
 
 Phases:
   1. device   card name and power limit (nvidia-smi), CUDA availability
-  2. build    nvcc-build every kernel under ray_tpu_torch/kernels/csrc
+  2. build    nvcc-build every kernel under ray_tpu_torch/kernels/csrc; fail
+              if the bf16 flash forward spills or its wgmma are serialised
+              (a C7513 note from ptxas, or a WARPGROUP.DEPBAR for every other
+              HGMMA in the SASS); count its HGMMA / UTMALDG / UTMASTG
+              instructions (cuobjdump)
   3. kernels  each kernel against its plain PyTorch version over a grid of
               shapes and dtypes, then timed beside its bound, its plain
               version and one library call: flash forward and RMSNorm at
               llama-7b prefill shapes, flash backward (dQ, dK/dV) and the
-              forward with lse at the gpt2-large training shape
+              forward with lse at the gpt2-large training shape (each also
+              checked against its plain version there)
   4. parity   llama-7b widths, 2 layers, f32: make_generate and
               InferenceEngine on the card vs make_generate on the CPU
   5. train_parity  llama-7b widths, 2 layers, f32, remat "attn": loss and
@@ -34,6 +39,8 @@ import argparse
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -110,6 +117,27 @@ def cuda_ms(fn, iters: int = 20, graph: bool = True):
     return device_ms, start.elapsed_time(end) / iters
 
 
+def profiled_ms(fn, iters: int = 10) -> float:
+    """Device ms per call of `fn`: the summed durations of the device events
+    torch.profiler records over `iters` calls, after 3 warm-up calls. For
+    work a CUDA graph cannot capture; gaps between kernels are not in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
+    if us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return us / iters / 1e3
+
+
 def compare(name: str, got, want, tol: float):
     """allclose-style check |got - want| <= tol * (1 + |want|); returns max
     abs error. Raises on a violation or a non-finite value."""
@@ -148,6 +176,80 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in _kernels().items()}
 
 
+# ------------------------------------------------------------------ build
+def serialised_wgmma(report: str) -> list:
+    """ptxas's notes (C7513) that it serialised wgmma products, wherever they
+    stand: only the bf16 flash forward issues wgmma, and the note need not
+    name its function on the same line."""
+    return [line for line in report.splitlines() if "C7513" in line]
+
+
+def spill_stores(report: str) -> dict:
+    """bf16 flash forward entry function -> bytes of spill stores ptxas reports."""
+    fn, spills = None, {}
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn and "flash_fwd_bf16" in fn:
+            spills[fn] = int(m.group(1))
+    return spills
+
+
+def sass_counts(sass: str) -> dict:
+    """Per bf16 flash forward instantiation ("D=128", ...): its HGMMA, TMA
+    (UTMALDG, UTMASTG) and WARPGROUP.DEPBAR instructions in cuobjdump's SASS."""
+    ops = {"HGMMA": r"\bHGMMA\b", "UTMALDG": r"\bUTMALDG\b", "UTMASTG": r"\bUTMASTG\b",
+           "DEPBAR": r"\bWARPGROUP\.DEPBAR\b"}
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"Function : \S*flash_fwd_bf16ILi(\d+)", line)
+            cur = f"D={m.group(1)}" if m else None
+            if cur:
+                counts[cur] = dict.fromkeys(ops, 0)
+        elif cur:
+            for op, pat in ops.items():
+                if re.search(pat, line):
+                    counts[cur][op] += 1
+    return counts
+
+
+def check_sass(counts: dict) -> None:
+    """Tensor-core and TMA instructions in every instantiation, and products
+    that are not serialised: a serialised wgmma pipeline waits
+    (WARPGROUP.DEPBAR) after every HGMMA, a pipelined one a few times per
+    key tile."""
+    if not counts or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in counts.values()):
+        raise AssertionError(f"bf16 flash forward without HGMMA or UTMALDG: {counts}")
+    serial = {d: c for d, c in counts.items() if 2 * c["DEPBAR"] >= c["HGMMA"]}
+    if serial:
+        raise AssertionError(f"bf16 flash forward: a WARPGROUP.DEPBAR for every other HGMMA or more "
+                             f"(serialised wgmma): {serial}")
+
+
+def check_build(build) -> None:
+    """What ptxas and the SASS say about the bf16 flash forward: no spills,
+    no serialised wgmma, and tensor-core (HGMMA) and TMA (UTMALDG, UTMASTG)
+    instructions in every instantiation."""
+    report = build.ptxas_report()
+    print(report, flush=True)
+    spills, serial = spill_stores(report), serialised_wgmma(report)
+    if not spills or any(spills.values()) or serial:
+        raise AssertionError(f"bf16 flash forward: spill stores {spills}, serialised wgmma {serial}")
+    log(f"build: bf16 flash forward, {len(spills)} instantiations, no spills, no C7513 note")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(cuobjdump):
+        log("build: no cuobjdump in the toolkit: SASS instruction counts not measured")
+        return
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(build.build_dir() / build.LIB_NAME)],
+                          capture_output=True, text=True, check=True).stdout
+    counts = sass_counts(sass)
+    log(f"build: SASS of the bf16 flash forward (cuobjdump): {counts}")
+    check_sass(counts)
+
+
 # ---------------------------------------------------------------- kernels
 def phase_kernels(results: dict) -> None:
     import torch
@@ -168,7 +270,7 @@ def phase_kernels(results: dict) -> None:
 
     flash_cases = [(1024, 1024, True), (1024, 1024, False), (200, 200, True),
                    (200, 200, False), (1, 128, True), (64, 192, True)]
-    for D in (64, 128, 256):
+    for D in (32, 64, 128, 256):
         for dname, dt in dtypes.items():
             tol = TOL["bf16"] if dname == "bf16" else TOL["f32_flash"]
             for S, Skv, causal in flash_cases:
@@ -248,6 +350,17 @@ def phase_kernels(results: dict) -> None:
                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
     log(f"flash_fwd at B=4 H=32 S=128 D=128 bf16 causal: kernel {t['ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms")
+    results["flash_fwd"].update(generate_shape_ms=t["ms"], generate_shape_library_ms=t["library_ms"])
+    # A long prompt, where the forward is bound by tensor-core operations
+    # (kernel against the library only: the plain version would hold 2 GB of
+    # f32 logits per call).
+    q, k, v = (randn(4, 32, 2048, 128, dtype=torch.bfloat16) for _ in range(3))
+    long_ms = cuda_ms(lambda: flash_fwd(q, k, v, True, scale))[0]
+    long_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))[0]
+    log(f"flash_fwd at B=4 H=32 S=2048 D=128 bf16 causal: kernel {long_ms:.4f} ms, library {long_lib_ms:.4f} ms")
+    results["flash_fwd"].update(long_shape_ms=long_ms, long_shape_library_ms=long_lib_ms)
+    del q, k, v
+    torch.cuda.empty_cache()
     for N in (512, 4):
         x = randn(N, 4096, dtype=torch.bfloat16)
         t = _times(lambda: rmsnorm_fwd(x, w), lambda: rmsnorm_plain(x, w),
@@ -309,6 +422,11 @@ def _time_flash_train_shape(results: dict, randn) -> None:
     scale = D ** -0.5
     q, k, v, do = (randn(B, H, S, D, dtype=torch.bfloat16) for _ in range(4))
     o, lse = flash_fwd(q, k, v, True, scale, True)
+    ref, ref_lse = flash_attention_plain(q, k, v, True, scale, return_lse=True)
+    fwd_err = max(compare("flash training shape out", o, ref, TOL["bf16"]),
+                  compare("flash training shape lse", lse.reshape(ref_lse.shape), ref_lse, TOL["bf16"]))
+    results["flash_fwd"]["max_abs_err"] = max(results["flash_fwd"]["max_abs_err"], fwd_err)
+    del ref, ref_lse
     delta = (do.float() * o.float()).sum(-1)
     got = flash_bwd(q, k, v, o, lse, do, True, scale)
     want = flash_attention_bwd_plain(q, k, v, o, lse, do, True, scale)
@@ -320,13 +438,17 @@ def _time_flash_train_shape(results: dict, randn) -> None:
     rows = B * H * S * 4              # one f32 [B*H, S] row vector (lse, Delta)
     plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, True, scale), iters=3)[0]
 
-    # The library's backward: scaled_dot_product_attention's, in an eager
-    # loop (autograd's backward is not captured in a graph here).
+    # The library's backward: scaled_dot_product_attention's, timed on the
+    # device by the profiler (autograd's backward of a forward run outside
+    # the graph is not captured in one); its eager loop, host time in, is
+    # logged beside it. The port's backward pair is timed both ways too.
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-    library_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
-                             graph=False)[1]
-    pair_ms = cuda_ms(lambda: flash_bwd(q, k, v, o, lse, do, True, scale))[0]
+    library_bwd = lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)  # noqa: E731
+    library_bwd_ms = profiled_ms(library_bwd)
+    library_bwd_eager_ms = cuda_ms(library_bwd, graph=False)[1]
+    pair = lambda: flash_bwd(q, k, v, o, lse, do, True, scale)  # noqa: E731
+    pair_ms, pair_profiled_ms = cuda_ms(pair)[0], profiled_ms(pair)
     for name, fn, flops, nbytes, err in (
         ("flash_bwd_dq", lambda: flash_bwd_dq(q, k, v, do, lse, delta, True, scale),
          6 * D * pairs, 5 * tile + 2 * rows, errs[0]),
@@ -342,19 +464,27 @@ def _time_flash_train_shape(results: dict, randn) -> None:
             bound_by="operations" if ops_s >= bytes_s else "bytes",
             shape=f"B={B} H={H} S={S} D={D} bf16 causal", ms=ms, eager_ms=eager_ms,
             plain_ms=plain_ms, library_ms=library_bwd_ms, pair_ms=pair_ms,
+            pair_profiled_ms=pair_profiled_ms, library_eager_ms=library_bwd_eager_ms,
         )
     log(f"flash backward at the training shape B={B} H={H} S={S} D={D} bf16 causal: Delta + dQ + dK/dV "
-        f"{pair_ms:.4f} ms, scaled_dot_product_attention backward {library_bwd_ms:.4f} ms (eager loop), "
-        f"plain {plain_ms:.4f} ms (plain computes dq, dk and dv together: it is the plain_ms of both rows)")
+        f"{pair_ms:.4f} ms (graph replay), {pair_profiled_ms:.4f} ms (profiler device time); "
+        f"scaled_dot_product_attention backward {library_bwd_ms:.4f} ms (profiler device time), "
+        f"{library_bwd_eager_ms:.4f} ms (eager loop, host time in); plain {plain_ms:.4f} ms "
+        f"(plain computes dq, dk and dv together: it is the plain_ms of both rows)")
 
     ops_s = 4 * D * pairs / H100_BF16_FLOPS
     bytes_s = (4 * tile + rows) / H100_BYTES_PER_S  # q, k, v read; o and lse written
     t = _times(lambda: flash_fwd(q, k, v, True, scale, True),
                lambda: flash_attention_plain(q, k, v, True, scale, return_lse=True),
                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    bound_by = "operations" if ops_s >= bytes_s else "bytes"
     log(f"flash_fwd with lse at the training shape: kernel {t['ms']:.4f} ms, bound "
-        f"{max(ops_s, bytes_s) * 1e3:.4f} ms ({'operations' if ops_s >= bytes_s else 'bytes'}), plain "
+        f"{max(ops_s, bytes_s) * 1e3:.4f} ms ({bound_by}), plain "
         f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms (scaled_dot_product_attention, no lse)")
+    results["flash_fwd"].update(
+        train_shape=f"B={B} H={H} S={S} D={D} bf16 causal, lse", train_shape_ms=t["ms"],
+        train_shape_bound_ms=max(ops_s, bytes_s) * 1e3, train_shape_bound_by=bound_by,
+        train_shape_plain_ms=t["plain_ms"], train_shape_library_ms=t["library_ms"])
 
 
 # ----------------------------------------------------------------- parity
@@ -753,7 +883,7 @@ def main(argv=None) -> int:
     if "build" in phases or "kernels" in phases:
         build.library()
         log(f"build: {build.build_seconds:.1f} s into {build.build_dir()}")
-        print(build.ptxas_report(), flush=True)
+        check_build(build)
 
     results: dict = {}
     if "kernels" in phases:
@@ -782,7 +912,13 @@ def main(argv=None) -> int:
             raise AssertionError(f"kernel {name} was never launched on the main path")
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
-    extra = ("pair_ms",)  # the backward rows: Delta + dQ + dK/dV, against the library's backward
+    # The backward rows: Delta + dQ + dK/dV against the library's backward
+    # (profiler device time; its eager loop beside it).
+    # flash_fwd: the forward with lse at the training shape, at the generate
+    # path's prefill shape, and at a long (S=2048) prompt.
+    extra = ("pair_ms", "pair_profiled_ms", "library_eager_ms", "train_shape", "train_shape_ms", "train_shape_bound_ms", "train_shape_bound_by",
+             "train_shape_plain_ms", "train_shape_library_ms", "generate_shape_ms",
+             "generate_shape_library_ms", "long_shape_ms", "long_shape_library_ms")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
                                   for r in results.values()]}), flush=True)
     print(card_line(), flush=True)

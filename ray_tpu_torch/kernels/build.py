@@ -112,12 +112,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rt_flash_fwd.argtypes = [
         p, p, p, p, p,          # q, k, v, o, lse (lse may be NULL)
         i, i, i, i, i,          # B, H, S, Skv, D
-        ll, ll, ll,             # q strides (batch, head, seq)
+        ll, ll, ll,             # q strides in bytes (batch, head, seq)
         ll, ll, ll,             # k strides
         ll, ll, ll,             # v strides
-        i, f, i, p,             # causal, scale, dtype code, stream
+        i, f, i,                # causal, scale, dtype code
+        p,                      # bf16 launch plan (flash_fwd.LaunchPlan; NULL for f32)
+        p,                      # stream
     ]
     lib.rt_flash_fwd.restype = i
+    lib.rt_flash_fwd_plan_bytes.argtypes = []
+    lib.rt_flash_fwd_plan_bytes.restype = i
     strides = [ll] * 12         # (batch, head, seq) strides of q, k, v, dO
     tail = [i, f, i, p]         # causal, scale, dtype code, stream
     lib.rt_flash_bwd_dq.argtypes = [p] * 7 + [i] * 5 + strides + tail  # q k v dO lse Δ dq

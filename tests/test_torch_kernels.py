@@ -47,11 +47,19 @@ def _randn(shape, dtype, device, seed):
     return torch.randn(shape, generator=g, device=device, dtype=torch.float32).to(dtype)
 
 
+# The bf16 forward works in 128-row q tiles and 128-key tiles (64 at
+# D = 256): sizes on both sides of each tile boundary, several q tiles
+# against a longer cache (Skv > S), and the smallest problem.
+_TILE_EDGES = [(S, S, causal) for S in (127, 128, 129, 255, 257, 1000) for causal in (True, False)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("S,Skv,causal", [(256, 256, True), (256, 256, False), (200, 200, True),
-                                          (200, 200, False), (1, 128, True), (64, 192, True)])
+                                          (200, 200, False), (1, 128, True), (64, 192, True),
+                                          *_TILE_EDGES, (300, 1000, True), (300, 1000, False),
+                                          (1, 1, True)])
 def test_flash_kernel_matches_plain(cuda, dtype, D, S, Skv, causal):
     q = _randn((2, 3, S, D), dtype, cuda, 0)
     k = _randn((2, 3, Skv, D), dtype, cuda, 1)
@@ -76,6 +84,65 @@ def test_flash_kernel_reads_strided_inputs(cuda):
     assert flash_fwd.launches == before + 1
     ref = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), True)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernel_more_items_than_two_waves(cuda, D):
+    """B*H = 288 > 2 * 132 (q tiles) work items: every persistent CTA walks
+    several items, heaviest first."""
+    q, k, v = (_randn((9, 32, 200, D), torch.bfloat16, cuda, 20 + i) for i in range(3))
+    out, lse = flash_fwd(q, k, v, True, D ** -0.5, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_attention_plain(q, k, v, True, return_lse=True)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse.reshape(ref_lse.shape), ref_lse, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_replays_in_a_cuda_graph(cuda):
+    """The launch (tensor maps as kernel parameters, shared-memory limit
+    raised beforehand) is captured once and replayed on new inputs."""
+    B, H, S, D = 2, 4, 300, 128
+    q, k, v = (_randn((B, H, S, D), torch.bfloat16, cuda, 30 + i) for i in range(3))
+    flash_fwd(q, k, v, True, D ** -0.5)  # first call outside the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_fwd(q, k, v, True, D ** -0.5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, lse = flash_fwd(q, k, v, True, D ** -0.5, return_lse=True)
+    for seed in (40, 50):
+        for i, t in enumerate((q, k, v)):
+            t.copy_(_randn((B, H, S, D), torch.bfloat16, cuda, seed + i))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_attention_plain(q, k, v, True, return_lse=True)
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(lse.reshape(ref_lse.shape), ref_lse, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_generate_layout(cuda):
+    """The generate path's prefill: q and k contiguous after RoPE, v a
+    strided view of the [B, S, 3, H, D] projection, read in place."""
+    qkv = _randn((4, 128, 3, 32, 128), torch.bfloat16, cuda, 60)
+    q, k = (qkv[:, :, i].transpose(1, 2).contiguous() for i in range(2))
+    v = qkv[:, :, 2].transpose(1, 2)
+    assert not v.is_contiguous()
+    out = flash_fwd(q, k, v, True, 128 ** -0.5)[0]
+    torch.cuda.synchronize()
+    ref = flash_attention_plain(q, k, v.contiguous(), True)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_nonpositive_scale(cuda):
+    x = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="scale"):
+        flash_fwd(x, x, x, True, 0.0)
 
 
 @pytest.mark.cuda
