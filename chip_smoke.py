@@ -6,16 +6,17 @@
 Phases:
   1. device   card name and power limit (nvidia-smi), CUDA availability
   2. build    nvcc-build every kernel under ray_tpu_torch/kernels/csrc; fail
-              if the bf16 flash forward spills or its wgmma are serialised
-              (a C7513 note from ptxas, or a WARPGROUP.DEPBAR for every other
-              HGMMA in the SASS); count its HGMMA / UTMALDG / UTMASTG
-              instructions (cuobjdump)
+              if a bf16 flash kernel (forward, backward dQ or dK/dV, each
+              head dim) spills or its wgmma are serialised (a C7513 note
+              from ptxas, or a WARPGROUP.DEPBAR for every other HGMMA in the
+              SASS), or has no HGMMA or UTMALDG; count its HGMMA / UTMALDG /
+              UTMASTG instructions (cuobjdump)
   3. kernels  each kernel against its plain PyTorch version over a grid of
               shapes and dtypes, then timed beside its bound, its plain
               version and one library call: flash forward and RMSNorm at
-              llama-7b prefill shapes, flash backward (dQ, dK/dV) and the
-              forward with lse at the gpt2-large training shape (each also
-              checked against its plain version there)
+              llama-7b prefill shapes, flash backward (dQ with Delta, dK/dV)
+              and the forward with lse at the gpt2-large training shape
+              (each also checked against its plain version there)
   4. parity   llama-7b widths, 2 layers, f32: make_generate and
               InferenceEngine on the card vs make_generate on the CPU
   5. train_parity  llama-7b widths, 2 layers, f32, remat "attn": loss and
@@ -177,36 +178,49 @@ def read_launches() -> dict:
 
 
 # ------------------------------------------------------------------ build
+# The bf16 flash kernels that issue wgmma through TMA-fed rings: each is
+# instantiated once per head dim.
+BF16_FLASH = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
+HEAD_DIMS = (32, 64, 128, 256)
+
+
+def instantiation(fn: str):
+    """"flash_bwd_dq_bf16 D=64" for a mangled bf16 flash kernel name, else None."""
+    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_bf16)ILi(\d+)E", fn)
+    return f"{m.group(1)} D={m.group(2)}" if m else None
+
+
 def serialised_wgmma(report: str) -> list:
     """ptxas's notes (C7513) that it serialised wgmma products, wherever they
-    stand: only the bf16 flash forward issues wgmma, and the note need not
+    stand: only the bf16 flash kernels issue wgmma, and the note need not
     name its function on the same line."""
     return [line for line in report.splitlines() if "C7513" in line]
 
 
 def spill_stores(report: str) -> dict:
-    """bf16 flash forward entry function -> bytes of spill stores ptxas reports."""
+    """bf16 flash entry function (forward and backward) -> bytes of spill
+    stores ptxas reports."""
     fn, spills = None, {}
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             fn = m.group(1)
         m = re.search(r"(\d+) bytes spill stores", line)
-        if m and fn and "flash_fwd_bf16" in fn:
+        if m and fn and instantiation(fn):
             spills[fn] = int(m.group(1))
     return spills
 
 
 def sass_counts(sass: str) -> dict:
-    """Per bf16 flash forward instantiation ("D=128", ...): its HGMMA, TMA
-    (UTMALDG, UTMASTG) and WARPGROUP.DEPBAR instructions in cuobjdump's SASS."""
+    """Per bf16 flash instantiation ("flash_fwd_bf16 D=128", ...): its
+    HGMMA, TMA (UTMALDG, UTMASTG) and WARPGROUP.DEPBAR instructions in
+    cuobjdump's SASS."""
     ops = {"HGMMA": r"\bHGMMA\b", "UTMALDG": r"\bUTMALDG\b", "UTMASTG": r"\bUTMASTG\b",
            "DEPBAR": r"\bWARPGROUP\.DEPBAR\b"}
     counts, cur = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"Function : \S*flash_fwd_bf16ILi(\d+)", line)
-            cur = f"D={m.group(1)}" if m else None
+            cur = instantiation(line)
             if cur:
                 counts[cur] = dict.fromkeys(ops, 0)
         elif cur:
@@ -220,25 +234,33 @@ def check_sass(counts: dict) -> None:
     """Tensor-core and TMA instructions in every instantiation, and products
     that are not serialised: a serialised wgmma pipeline waits
     (WARPGROUP.DEPBAR) after every HGMMA, a pipelined one a few times per
-    key tile."""
+    stream tile."""
     if not counts or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in counts.values()):
-        raise AssertionError(f"bf16 flash forward without HGMMA or UTMALDG: {counts}")
+        raise AssertionError(f"bf16 flash kernel without HGMMA or UTMALDG: {counts}")
     serial = {d: c for d, c in counts.items() if 2 * c["DEPBAR"] >= c["HGMMA"]}
     if serial:
-        raise AssertionError(f"bf16 flash forward: a WARPGROUP.DEPBAR for every other HGMMA or more "
+        raise AssertionError(f"bf16 flash kernel with a WARPGROUP.DEPBAR for every other HGMMA or more "
                              f"(serialised wgmma): {serial}")
 
 
+def missing_instantiations(found) -> list:
+    """The bf16 flash instantiations (kernel x head dim) not among `found`."""
+    found = set(found)
+    return [f"{k} D={d}" for k in BF16_FLASH for d in HEAD_DIMS if f"{k} D={d}" not in found]
+
+
 def check_build(build) -> None:
-    """What ptxas and the SASS say about the bf16 flash forward: no spills,
-    no serialised wgmma, and tensor-core (HGMMA) and TMA (UTMALDG, UTMASTG)
-    instructions in every instantiation."""
+    """What ptxas and the SASS say about every bf16 flash kernel, forward and
+    backward: no spills, no serialised wgmma, and tensor-core (HGMMA) and
+    TMA (UTMALDG) instructions in every instantiation."""
     report = build.ptxas_report()
     print(report, flush=True)
     spills, serial = spill_stores(report), serialised_wgmma(report)
-    if not spills or any(spills.values()) or serial:
-        raise AssertionError(f"bf16 flash forward: spill stores {spills}, serialised wgmma {serial}")
-    log(f"build: bf16 flash forward, {len(spills)} instantiations, no spills, no C7513 note")
+    missing = missing_instantiations(instantiation(fn) for fn in spills)
+    if missing or any(spills.values()) or serial:
+        raise AssertionError(f"bf16 flash kernels: spill stores {spills}, serialised wgmma {serial}, "
+                             f"not in the ptxas report {missing}")
+    log(f"build: bf16 flash forward and backward, {len(spills)} instantiations, no spills, no C7513 note")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(cuobjdump):
         log("build: no cuobjdump in the toolkit: SASS instruction counts not measured")
@@ -246,7 +268,10 @@ def check_build(build) -> None:
     sass = subprocess.run([cuobjdump, "--dump-sass", str(build.build_dir() / build.LIB_NAME)],
                           capture_output=True, text=True, check=True).stdout
     counts = sass_counts(sass)
-    log(f"build: SASS of the bf16 flash forward (cuobjdump): {counts}")
+    log(f"build: SASS of the bf16 flash kernels (cuobjdump): {counts}")
+    missing = missing_instantiations(counts)
+    if missing:
+        raise AssertionError(f"bf16 flash instantiations not in the SASS: {missing}")
     check_sass(counts)
 
 
@@ -375,13 +400,33 @@ def _times(kernel, plain, library) -> dict:
                 library_ms=cuda_ms(library)[0] if library is not None else None)
 
 
-def _check_flash_bwd(randn, dtypes) -> None:
-    """dq, dk, dv of the two backward kernels against the plain backward."""
+def _check_bwd_case(tag: str, q, k, v, do, causal: bool, tol: float, strided_do=None) -> list:
+    """dQ, Delta (the dQ kernel's), dK and dV of the two backward kernels,
+    launched as `flash_bwd` launches them, against the plain backward and
+    rowsum(dO o O); returns their max abs errors. `strided_do`, when given,
+    is the view the kernels read (do is its contiguous copy)."""
     import torch
 
-    from ray_tpu_torch.kernels.flash_bwd import flash_bwd
+    from ray_tpu_torch.kernels.flash_bwd import flash_bwd_dkv, flash_bwd_dq
     from ray_tpu_torch.kernels.flash_fwd import flash_fwd
     from ray_tpu_torch.ops.attention import flash_attention_bwd_plain
+
+    scale = q.shape[-1] ** -0.5
+    kdo = do if strided_do is None else strided_do
+    o, lse = flash_fwd(q, k, v, causal, scale, True)
+    dq, delta = flash_bwd_dq(q, k, v, o, kdo, lse, causal, scale)
+    dk, dv = flash_bwd_dkv(q, k, v, kdo, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
+    want_delta = (do.float() * o.float()).sum(-1).reshape(delta.shape)
+    return [compare(f"flash bwd {name} {tag}", a, w, tol)
+            for name, a, w in zip(("dq", "delta", "dk", "dv"), (dq, delta, dk, dv), (want[0], want_delta, *want[1:]))]
+
+
+def _check_flash_bwd(randn, dtypes) -> None:
+    """dq, Delta, dk, dv of the two backward kernels against the plain
+    backward, over head dims, dtypes and tile edges."""
+    import torch
 
     cases = [(1024, 1024, True), (1024, 1024, False), (200, 200, True), (64, 192, True)]
     for D in (32, 64, 128, 256):
@@ -390,26 +435,18 @@ def _check_flash_bwd(randn, dtypes) -> None:
             for S, Skv, causal in cases:
                 q, do = randn(1, 2, S, D, dtype=dt), randn(1, 2, S, D, dtype=dt)
                 k, v = randn(1, 2, Skv, D, dtype=dt), randn(1, 2, Skv, D, dtype=dt)
-                o, lse = flash_fwd(q, k, v, causal, D ** -0.5, True)
-                got = flash_bwd(q, k, v, o, lse, do, causal, D ** -0.5)
-                torch.cuda.synchronize()
-                want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal, D ** -0.5)
-                for name, a, w in zip(("dq", "dk", "dv"), got, want):
-                    compare(f"flash bwd {name} D={D} {dname} S={S} Skv={Skv} causal={causal}", a, w, tol)
+                _check_bwd_case(f"D={D} {dname} S={S} Skv={Skv} causal={causal}", q, k, v, do, causal, tol)
     # dO as autograd may hand it over: a transposed view, not contiguous.
     B, H, S, D = 2, 4, 256, 64
     q, k, v = (randn(B, H, S, D, dtype=torch.bfloat16) for _ in range(3))
     do = randn(B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
-    o, lse = flash_fwd(q, k, v, True, D ** -0.5, True)
-    got = flash_bwd(q, k, v, o, lse, do, True, D ** -0.5)
-    want = flash_attention_bwd_plain(q, k, v, o, lse, do.contiguous(), True, D ** -0.5)
-    for name, a, w in zip(("dq", "dk", "dv"), got, want):
-        compare(f"flash bwd {name} strided dO B={B} H={H} S={S} D={D} bf16", a, w, TOL["bf16"])
+    _check_bwd_case(f"strided dO B={B} H={H} S={S} D={D} bf16", q, k, v, do.contiguous(), True, TOL["bf16"],
+                    strided_do=do)
 
 
 def _time_flash_train_shape(results: dict, randn) -> None:
     """The flash kernels at the gpt2-large training shape (bf16, causal):
-    dQ and dK/dV alone, their sum with Delta against the backward of
+    dQ (with Delta) and dK/dV alone, the pair against the backward of
     scaled_dot_product_attention, and the forward with lse."""
     import torch
     import torch.nn.functional as F
@@ -427,12 +464,14 @@ def _time_flash_train_shape(results: dict, randn) -> None:
                   compare("flash training shape lse", lse.reshape(ref_lse.shape), ref_lse, TOL["bf16"]))
     results["flash_fwd"]["max_abs_err"] = max(results["flash_fwd"]["max_abs_err"], fwd_err)
     del ref, ref_lse
-    delta = (do.float() * o.float()).sum(-1)
-    got = flash_bwd(q, k, v, o, lse, do, True, scale)
-    want = flash_attention_bwd_plain(q, k, v, o, lse, do, True, scale)
-    errs = [compare(f"flash bwd {n} training shape", a, w, TOL["bf16"])
-            for n, a, w in zip(("dq", "dk", "dv"), got, want)]
-    del got, want
+    errs = _check_bwd_case(f"training shape B={B} H={H} S={S} D={D} bf16", q, k, v, do, True, TOL["bf16"])
+    # The strided dO autograd hands over at this shape: [B, S, H, D] seen as [B, H, S, D].
+    do_t = do.transpose(1, 2).contiguous().transpose(1, 2)
+    errs = [max(a, b) for a, b in zip(errs, _check_bwd_case(
+        f"training shape, strided dO B={B} H={H} S={S} D={D} bf16", q, k, v, do, True, TOL["bf16"],
+        strided_do=do_t))]
+    del do_t
+    delta = flash_bwd_dq(q, k, v, o, do, lse, True, scale)[1]
     pairs = B * H * S * (S + 1) // 2  # unmasked (query, key) pairs
     tile = B * H * S * D * 2          # one bf16 [B, H, S, D] tensor
     rows = B * H * S * 4              # one f32 [B*H, S] row vector (lse, Delta)
@@ -441,7 +480,8 @@ def _time_flash_train_shape(results: dict, randn) -> None:
     # The library's backward: scaled_dot_product_attention's, timed on the
     # device by the profiler (autograd's backward of a forward run outside
     # the graph is not captured in one); its eager loop, host time in, is
-    # logged beside it. The port's backward pair is timed both ways too.
+    # logged beside it. The port's backward pair (Delta in its dQ kernel) is
+    # timed both ways too.
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
     library_bwd = lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)  # noqa: E731
@@ -450,10 +490,12 @@ def _time_flash_train_shape(results: dict, randn) -> None:
     pair = lambda: flash_bwd(q, k, v, o, lse, do, True, scale)  # noqa: E731
     pair_ms, pair_profiled_ms = cuda_ms(pair)[0], profiled_ms(pair)
     for name, fn, flops, nbytes, err in (
-        ("flash_bwd_dq", lambda: flash_bwd_dq(q, k, v, do, lse, delta, True, scale),
-         6 * D * pairs, 5 * tile + 2 * rows, errs[0]),
+        # q, k, v, o, dO read, dq written; lse read, Delta written
+        ("flash_bwd_dq", lambda: flash_bwd_dq(q, k, v, o, do, lse, True, scale),
+         6 * D * pairs, 6 * tile + 2 * rows, max(errs[:2])),
+        # q, k, v, dO read, dk, dv written; lse and Delta read
         ("flash_bwd_dkv", lambda: flash_bwd_dkv(q, k, v, do, lse, delta, True, scale),
-         8 * D * pairs, 6 * tile + 2 * rows, max(errs[1:])),
+         8 * D * pairs, 6 * tile + 2 * rows, max(errs[2:])),
     ):
         ops_s, bytes_s = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
         ms, eager_ms = cuda_ms(fn)
@@ -466,7 +508,7 @@ def _time_flash_train_shape(results: dict, randn) -> None:
             plain_ms=plain_ms, library_ms=library_bwd_ms, pair_ms=pair_ms,
             pair_profiled_ms=pair_profiled_ms, library_eager_ms=library_bwd_eager_ms,
         )
-    log(f"flash backward at the training shape B={B} H={H} S={S} D={D} bf16 causal: Delta + dQ + dK/dV "
+    log(f"flash backward at the training shape B={B} H={H} S={S} D={D} bf16 causal: dQ (with Delta) + dK/dV "
         f"{pair_ms:.4f} ms (graph replay), {pair_profiled_ms:.4f} ms (profiler device time); "
         f"scaled_dot_product_attention backward {library_bwd_ms:.4f} ms (profiler device time), "
         f"{library_bwd_eager_ms:.4f} ms (eager loop, host time in); plain {plain_ms:.4f} ms "
@@ -912,7 +954,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"kernel {name} was never launched on the main path")
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
-    # The backward rows: Delta + dQ + dK/dV against the library's backward
+    # The backward rows: the pair (dQ with Delta, dK/dV) against the library's backward
     # (profiler device time; its eager loop beside it).
     # flash_fwd: the forward with lse at the training shape, at the generate
     # path's prefill shape, and at a long (S=2048) prompt.

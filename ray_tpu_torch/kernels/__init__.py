@@ -3,7 +3,7 @@
 | wrapper | source | replaces (TPU Pallas kernel) |
 | --- | --- | --- |
 | `flash_fwd.flash_fwd` | `csrc/flash_fwd.cu` | `ray_tpu/ops/attention.py` `_flash_fwd_pallas` |
-| `flash_bwd.flash_bwd_dq` | `csrc/flash_bwd.cu` | `_flash_bwd_pallas` (`_flash_bwd_dq_kernel`) |
+| `flash_bwd.flash_bwd_dq` (with Δ) | `csrc/flash_bwd.cu` | `_flash_bwd_pallas` (`_flash_bwd_dq_kernel`, and Δ) |
 | `flash_bwd.flash_bwd_dkv` | `csrc/flash_bwd.cu` | `_flash_bwd_pallas` (`_flash_bwd_dkv_kernel`) |
 | `rmsnorm.rmsnorm_fwd` | `csrc/rmsnorm.cu` | `ray_tpu/ops/norms.py` `_rmsnorm_pallas` |
 

@@ -122,12 +122,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rt_flash_fwd.restype = i
     lib.rt_flash_fwd_plan_bytes.argtypes = []
     lib.rt_flash_fwd_plan_bytes.restype = i
-    strides = [ll] * 12         # (batch, head, seq) strides of q, k, v, dO
-    tail = [i, f, i, p]         # causal, scale, dtype code, stream
-    lib.rt_flash_bwd_dq.argtypes = [p] * 7 + [i] * 5 + strides + tail  # q k v dO lse Δ dq
+    tail = [i, f, i, p, p]      # causal, scale, dtype code, bf16 launch plan (NULL for f32), stream
+    # q k v o dO lse Δ dq, B H S Skv D, (batch, head, seq) byte strides of q k v o dO
+    lib.rt_flash_bwd_dq.argtypes = [p] * 8 + [i] * 5 + [ll] * 15 + tail
     lib.rt_flash_bwd_dq.restype = i
-    lib.rt_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 5 + strides + tail  # ... dk dv
+    # q k v dO lse Δ dk dv, B H S Skv D, byte strides of q k v dO
+    lib.rt_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 5 + [ll] * 12 + tail
     lib.rt_flash_bwd_dkv.restype = i
+    lib.rt_flash_bwd_plan_bytes.argtypes = []
+    lib.rt_flash_bwd_plan_bytes.restype = i
     lib.rt_rmsnorm.argtypes = [p, p, p, i, i, ll, f, i, p]  # x, w, y, N, D, row stride, eps, dtype, stream
     lib.rt_rmsnorm.restype = i
     lib.rt_error_string.argtypes = [i]

@@ -134,14 +134,6 @@ struct QTiles {
   QTile t[kMaxQTiles];
 };
 
-// A rank-4 bf16 tensor map over [B, H, L, D], dims innermost first, byte
-// strides of L, H and B, box (columns, rows). (flash_fwd.TmaMap.)
-struct TmaSpec {
-  unsigned long long dims[4];
-  unsigned long long strides[3];
-  unsigned int box[2];
-};
-
 // What rt_flash_fwd is handed for a bf16 launch (flash_fwd.LaunchPlan).
 struct FwdLaunch {
   int block_q, block_k, swizzle, stages, smem_bytes, grid, n_items, BH;
@@ -621,46 +613,6 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ------------------------------------------------------------ host side
-// cuTensorMapEncodeTiled from the driver, found through the runtime so that
-// the library links against nothing but cudart.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p)
-                                                                        : nullptr;
-  }();
-  return fn;
-}
-
-// The tensor map of spec over base. TMA needs the base and every stride
-// 16-byte aligned: the wrapper's `_kernel_view` guarantees both (it copies
-// otherwise).
-cudaError_t make_map(CUtensorMap* map, const void* base, const TmaSpec& spec, int swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {spec.dims[0], spec.dims[1], spec.dims[2], spec.dims[3]};
-  const cuuint64_t gstrides[3] = {spec.strides[0], spec.strides[1], spec.strides[2]};
-  const cuuint32_t box[4] = {spec.box[0], spec.box[1], 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                            gstrides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // Refuses a plan this instantiation cannot run: another tile shape or
 // swizzle than it was compiled for (the copies' expect-tx byte counts and
 // the wgmma shapes assume them), tensor maps that are not over these
@@ -675,14 +627,9 @@ bool plan_fits(const FwdLaunch& p, int B, int H, int S, int Skv) {
       p.n_items / p.BH > kMaxQTiles)
     return false;
   const unsigned rows[4] = {C::BQ, C::BK, C::BK, 64};  // o: one consumer warpgroup's rows
-  const unsigned long long lens[4] = {(unsigned long long)S, (unsigned long long)Skv,
-                                      (unsigned long long)Skv, (unsigned long long)S};
-  for (int i = 0; i < 4; ++i) {
-    const TmaSpec& m = p.maps[i];
-    if (m.box[0] != C::BOX || m.box[1] != rows[i] || m.dims[0] != unsigned(D) || m.dims[1] != lens[i] ||
-        m.dims[2] != unsigned(H) || m.dims[3] != unsigned(B))
-      return false;
-  }
+  const int lens[4] = {S, Skv, Skv, S};
+  for (int i = 0; i < 4; ++i)
+    if (!map_fits(p.maps[i], D, lens[i], H, B, C::BOX, rows[i])) return false;
   return true;
 }
 

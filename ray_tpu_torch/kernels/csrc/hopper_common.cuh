@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks in raw PTX, shared by the flash-attention
 // kernels: TMA tile loads, mbarriers with phase bits, wgmma shared-memory
 // descriptors, the wgmma products themselves (fence, commit, wait), and
-// setmaxnreg for warp specialisation.
+// setmaxnreg for warp specialisation; on the host, the rank-4 tensor maps.
 //
 // Shared-memory tiles are laid out as TMA lands them with a 128-byte (or
 // 64-byte) swizzle: a tile of R rows by C bf16 columns is C / (swizzle / 2)
@@ -218,13 +218,24 @@ __device__ __forceinline__ void regs_claim() {
 
 // wgmma.mma_async m64nNk16, bf16 inputs, f32 accumulators. PTX names every
 // accumulator register, so each width is written out: ss (A and B from
-// shared memory) at the key-tile widths, rs (A from registers) at the head
-// dims.
+// shared memory) at the stream-tile widths, rs (A from registers) at the
+// head dims.
 template <int N>
 struct Wgmma;
 
 template <>
 struct Wgmma<32> {
+  // d (64 x 32, f32) (+)= A (64 x 16, smem) * B (16 x 32, smem), both K-major.
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+  }
   // d (64 x 32, f32) (+)= A (64 x 16, bf16 registers) * B (16 x 32, smem); B is
   // MN-major (rows of N contiguous) when TransB is 1.
   template <int TransB>
@@ -361,5 +372,60 @@ struct Wgmma<256> {
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TransB));
   }
 };
+
+// ------------------------------------------------------------ host side
+// A rank-4 bf16 tensor map over [B, H, L, D], dims innermost first, byte
+// strides of L, H and B, box (columns, rows). (flash_fwd.TmaMap.)
+struct TmaSpec {
+  unsigned long long dims[4];
+  unsigned long long strides[3];
+  unsigned int box[2];
+};
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime so that
+// the library links against nothing but cudart.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p)
+                                                                        : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of spec over base. TMA needs the base and every stride
+// 16-byte aligned: the wrappers' `_kernel_view` guarantees both (it copies
+// otherwise).
+inline cudaError_t make_map(CUtensorMap* map, const void* base, const TmaSpec& spec, int swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {spec.dims[0], spec.dims[1], spec.dims[2], spec.dims[3]};
+  const cuuint64_t gstrides[3] = {spec.strides[0], spec.strides[1], spec.strides[2]};
+  const cuuint32_t box[4] = {spec.box[0], spec.box[1], 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                            gstrides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Does spec describe a [B, H, len, D] tensor read in boxes of (cols, rows)?
+inline bool map_fits(const TmaSpec& m, int D, int len, int H, int B, unsigned cols, unsigned rows) {
+  return m.box[0] == cols && m.box[1] == rows && m.dims[0] == unsigned(D) &&
+         m.dims[1] == (unsigned long long)len && m.dims[2] == unsigned(H) && m.dims[3] == unsigned(B);
+}
 
 }  // namespace

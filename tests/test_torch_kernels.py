@@ -167,26 +167,42 @@ def test_rmsnorm_kernel_reads_row_strided_input(cuda):
                                atol=2e-2, rtol=2e-2)
 
 
+def _bwd_pair(q, k, v, o, lse, do, causal, scale):
+    """dQ, Δ, dK, dV from the two kernels, launched as `flash_bwd` launches
+    them (dQ writes Δ, dK/dV reads it)."""
+    dq, delta = flash_bwd_dq(q, k, v, o, do, lse, causal, scale)
+    return (dq, delta, *flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale))
+
+
+def _assert_bwd_matches_plain(got, q, k, v, o, lse, do, causal, scale, tol):
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
+    want_delta = (do.float() * o.float()).sum(-1).reshape(got[1].shape)
+    for name, a, w in zip(("dq", "delta", "dk", "dv"), got, (want[0], want_delta, *want[1:])):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        torch.testing.assert_close(a.float(), w.float(), atol=tol, rtol=tol, msg=name)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("S,Skv,causal", [(256, 256, True), (256, 256, False), (200, 200, True),
                                           (1, 128, True), (64, 192, True)])
 def test_flash_bwd_kernels_match_plain(cuda, dtype, D, S, Skv, causal):
+    """dQ, dK, dV and the dQ kernel's Δ against the plain backward and
+    rowsum(dO∘O); `flash_bwd` launches each kernel once."""
     q = _randn((2, 3, S, D), dtype, cuda, 10)
     k = _randn((2, 3, Skv, D), dtype, cuda, 11)
     v = _randn((2, 3, Skv, D), dtype, cuda, 12)
     do = _randn((2, 3, S, D), dtype, cuda, 13)
     o, lse = flash_fwd(q, k, v, causal, D ** -0.5, return_lse=True)
     before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
-    got = flash_bwd(q, k, v, o, lse, do, causal, D ** -0.5)
+    dq, dk, dv = flash_bwd(q, k, v, o, lse, do, causal, D ** -0.5)
     torch.cuda.synchronize()
     assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
-    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal, D ** -0.5)
-    tol = TOL[dtype]
-    for name, a, w in zip("qkv", got, want):
-        assert a.dtype == dtype and a.shape == w.shape
-        torch.testing.assert_close(a.float(), w.float(), atol=tol, rtol=tol, msg=f"d{name}")
+    got = _bwd_pair(q, k, v, o, lse, do, causal, D ** -0.5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), (got[0], *got[2:])))
+    _assert_bwd_matches_plain(got, q, k, v, o, lse, do, causal, D ** -0.5, TOL[dtype])
 
 
 @pytest.mark.cuda
@@ -198,11 +214,51 @@ def test_flash_bwd_kernels_read_strided_inputs(cuda):
     do = _randn((2, 100, 4, 64), torch.bfloat16, cuda, 15).transpose(1, 2)
     assert not do.is_contiguous()
     o, lse = flash_fwd(q, k, v, True, 0.125, return_lse=True)
-    got = flash_bwd(q, k, v, o, lse, do, True, 0.125)
-    want = flash_attention_bwd_plain(*(t.contiguous() for t in (q, k, v, o)), lse, do.contiguous(),
-                                     True, 0.125)
-    for a, w in zip(got, want):
-        torch.testing.assert_close(a.float(), w.float(), atol=2e-2, rtol=2e-2)
+    got = _bwd_pair(q, k, v, o, lse, do, True, 0.125)
+    torch.cuda.synchronize()
+    _assert_bwd_matches_plain(got, *(t.contiguous() for t in (q, k, v, o)), lse, do.contiguous(), True, 0.125,
+                              2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_kernels_are_deterministic(cuda, dtype):
+    """Two runs give bitwise-equal dQ, Δ, dK and dV: no atomics, a fixed
+    order of every sum (B*H = 288 heads: persistent CTAs walk several items)."""
+    q, k, v, do = (_randn((9, 32, 300, 64), dtype, cuda, 70 + i) for i in range(4))
+    o, lse = flash_fwd(q, k, v, True, 0.125, return_lse=True)
+    first = _bwd_pair(q, k, v, o, lse, do, True, 0.125)
+    second = _bwd_pair(q, k, v, o, lse, do, True, 0.125)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "delta", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_flash_bwd_pair_replays_in_a_cuda_graph(cuda):
+    """The pair (tensor maps as kernel parameters, Δ handed from one kernel
+    to the next on the stream) is captured once and replayed on new inputs."""
+    B, H, S, D = 2, 4, 300, 64
+    q, k, v, do = (_randn((B, H, S, D), torch.bfloat16, cuda, 80 + i) for i in range(4))
+    o, lse = flash_fwd(q, k, v, True, D ** -0.5, return_lse=True)
+    flash_bwd(q, k, v, o, lse, do, True, D ** -0.5)  # first call outside the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_bwd(q, k, v, o, lse, do, True, D ** -0.5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = _bwd_pair(q, k, v, o, lse, do, True, D ** -0.5)
+    for seed in (90, 100):
+        for i, t in enumerate((q, k, v, do)):
+            t.copy_(_randn((B, H, S, D), torch.bfloat16, cuda, seed + i))
+        o2, lse2 = flash_fwd(q, k, v, True, D ** -0.5, return_lse=True)
+        o.copy_(o2)
+        lse.copy_(lse2)
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_bwd_matches_plain(got, q, k, v, o, lse, do, True, D ** -0.5, 2e-2)
 
 
 def _tiny_llama(**kw):
@@ -274,6 +330,6 @@ def test_bwd_wrappers_refuse_cpu_tensors():
     x = torch.zeros(1, 2, 8, 64)
     stats = torch.zeros(2, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        flash_bwd_dq(x, x, x, x, stats, stats, True, 0.125)
+        flash_bwd_dq(x, x, x, x, x, stats, True, 0.125)
     with pytest.raises(ValueError, match="CUDA"):
         flash_bwd_dkv(x, x, x, x, stats, stats, True, 0.125)
