@@ -10,13 +10,16 @@ Phases:
               head dim) spills or its wgmma are serialised (a C7513 note
               from ptxas, or a WARPGROUP.DEPBAR for every other HGMMA in the
               SASS), or has no HGMMA or UTMALDG; count its HGMMA / UTMALDG /
-              UTMASTG instructions (cuobjdump)
+              UTMASTG instructions (cuobjdump); fail if an RMSNorm
+              instantiation spills or is missing
   3. kernels  each kernel against its plain PyTorch version over a grid of
               shapes and dtypes, then timed beside its bound, its plain
-              version and one library call: flash forward and RMSNorm at
-              llama-7b prefill shapes, flash backward (dQ with Delta, dK/dV)
-              and the forward with lse at the gpt2-large training shape
-              (each also checked against its plain version there)
+              version and one library call: flash forward at llama-7b
+              prefill shapes, flash backward (dQ with Delta, dK/dV) and the
+              forward with lse at the gpt2-large training shape (each also
+              checked against its plain version there), RMSNorm at the main
+              path's rows (D=4096: N = 1, 4, 8, 64, 512, 2048, 16384 bf16,
+              256 f32) beside a one-element kernel's launch floor
   4. parity   llama-7b widths, 2 layers, f32: make_generate and
               InferenceEngine on the card vs make_generate on the CPU
   5. train_parity  llama-7b widths, 2 layers, f32, remat "attn": loss and
@@ -198,15 +201,15 @@ def serialised_wgmma(report: str) -> list:
 
 
 def spill_stores(report: str) -> dict:
-    """bf16 flash entry function (forward and backward) -> bytes of spill
-    stores ptxas reports."""
+    """bf16 flash (forward and backward) and RMSNorm entry function -> bytes
+    of spill stores ptxas reports."""
     fn, spills = None, {}
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             fn = m.group(1)
         m = re.search(r"(\d+) bytes spill stores", line)
-        if m and fn and instantiation(fn):
+        if m and fn and (instantiation(fn) or rmsnorm_instantiation(fn)):
             spills[fn] = int(m.group(1))
     return spills
 
@@ -243,6 +246,34 @@ def check_sass(counts: dict) -> None:
                              f"(serialised wgmma): {serial}")
 
 
+RMS_TYPES = {"2": "bf16", "4": "f32"}
+
+
+def rmsnorm_instantiation(fn: str):
+    """"rmsnorm_regs x=bf16 w=f32 NV=2" / "rmsnorm_rows x=f32 w=f32 vector"
+    for a mangled RMSNorm kernel name, else None."""
+    m = re.search(r"(rmsnorm_(?:regs|rows))ILi(\d)ELi(\d)E(?:Li(\d)E|Lb([01])E)", fn)
+    if not m:
+        return None
+    kind = f"NV={m.group(4)}" if m.group(4) else ("vector" if m.group(5) == "1" else "scalar")
+    return f"{m.group(1)} x={RMS_TYPES[m.group(2)]} w={RMS_TYPES[m.group(3)]} {kind}"
+
+
+def rmsnorm_expected() -> list:
+    """Every RMSNorm instantiation the build must hold: the register kernel
+    for each x and w dtype and NV in (1, 2), the two-pass kernel for each
+    dtype pair, vector and scalar."""
+    pairs = [(x, w) for x in ("bf16", "f32") for w in ("bf16", "f32")]
+    return ([f"rmsnorm_regs x={x} w={w} NV={nv}" for x, w in pairs for nv in (1, 2)]
+            + [f"rmsnorm_rows x={x} w={w} {kind}" for x, w in pairs for kind in ("vector", "scalar")])
+
+
+def missing_rmsnorm(found) -> list:
+    """The RMSNorm instantiations not among the mangled names `found`."""
+    names = {rmsnorm_instantiation(fn) for fn in found}
+    return [k for k in rmsnorm_expected() if k not in names]
+
+
 def missing_instantiations(found) -> list:
     """The bf16 flash instantiations (kernel x head dim) not among `found`."""
     found = set(found)
@@ -257,10 +288,12 @@ def check_build(build) -> None:
     print(report, flush=True)
     spills, serial = spill_stores(report), serialised_wgmma(report)
     missing = missing_instantiations(instantiation(fn) for fn in spills)
+    missing += missing_rmsnorm(spills)
     if missing or any(spills.values()) or serial:
-        raise AssertionError(f"bf16 flash kernels: spill stores {spills}, serialised wgmma {serial}, "
+        raise AssertionError(f"bf16 flash and RMSNorm kernels: spill stores {spills}, serialised wgmma {serial}, "
                              f"not in the ptxas report {missing}")
-    log(f"build: bf16 flash forward and backward, {len(spills)} instantiations, no spills, no C7513 note")
+    log(f"build: bf16 flash forward and backward and RMSNorm, {len(spills)} instantiations, no spills, "
+        f"no C7513 note")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(cuobjdump):
         log("build: no cuobjdump in the toolkit: SASS instruction counts not measured")
@@ -321,13 +354,14 @@ def phase_kernels(results: dict) -> None:
 
     for dname, dt in dtypes.items():
         tol = TOL["bf16"] if dname == "bf16" else TOL["f32_rmsnorm"]
-        for N in (1, 4, 7, 64, 512, 4096):  # 4, 64, 512: decode, engine chunk, prefill rows
-            for D in (4096, 768):
-                x = randn(N, D, dtype=dt) * 3
-                w = (1 + 0.1 * randn(D, dtype=torch.float32)).to(dt)
-                y = rmsnorm_fwd(x, w)
-                torch.cuda.synchronize()
-                compare(f"rmsnorm N={N} D={D} {dname}", y, rmsnorm_plain(x, w), tol)
+        for wname, wt in dtypes.items():  # the weight is read in its own dtype
+            for N in (1, 4, 7, 64, 512, 4096):  # 4, 64, 512: decode, engine chunk, prefill rows
+                for D in (4096, 768):
+                    x = randn(N, D, dtype=dt) * 3
+                    w = (1 + 0.1 * randn(D, dtype=torch.float32)).to(wt)
+                    y = rmsnorm_fwd(x, w)
+                    torch.cuda.synchronize()
+                    compare(f"rmsnorm N={N} D={D} x {dname} w {wname}", y, rmsnorm_plain(x, w), tol)
 
     # Timing at llama-7b prefill shapes (bf16): B=4, H=32, S=512, D=128.
     B, H, S, D = 4, 32, 512, 128
@@ -348,20 +382,7 @@ def phase_kernels(results: dict) -> None:
                  lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
     )
 
-    N, D = 2048, 4096
-    x = randn(N, D, dtype=torch.bfloat16)
-    w = (1 + 0.1 * randn(D, dtype=torch.float32)).to(torch.bfloat16)
-    err = compare("rmsnorm timed shape", rmsnorm_fwd(x, w), rmsnorm_plain(x, w), TOL["bf16"])
-    bytes_s = (2 * N * D * 2 + D * 4) / H100_BYTES_PER_S  # x read, y written, f32 weight
-    ops_s = 4 * N * D / H100_F32_FLOPS
-    results["rmsnorm"] = dict(
-        name="rmsnorm", route="cuda", source="ray_tpu_torch/kernels/csrc/rmsnorm.cu",
-        replaces="ray_tpu/ops/norms.py:30", max_abs_err=err,
-        bound_ms=max(ops_s, bytes_s) * 1e3, bound_by="operations" if ops_s > bytes_s else "bytes",
-        shape=f"N={N} D={D} bf16",
-        **_times(lambda: rmsnorm_fwd(x, w), lambda: rmsnorm_plain(x, w),
-                 lambda: F.rms_norm(x, (D,), w, 1e-6)),
-    )
+    _time_rmsnorm(results, randn)
     _time_flash_train_shape(results, randn)
     for r in results.values():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -386,12 +407,77 @@ def phase_kernels(results: dict) -> None:
     results["flash_fwd"].update(long_shape_ms=long_ms, long_shape_library_ms=long_lib_ms)
     del q, k, v
     torch.cuda.empty_cache()
-    for N in (512, 4):
-        x = randn(N, 4096, dtype=torch.bfloat16)
-        t = _times(lambda: rmsnorm_fwd(x, w), lambda: rmsnorm_plain(x, w),
-                   lambda: F.rms_norm(x, (4096,), w, 1e-6))
-        log(f"rmsnorm at N={N} D=4096 bf16: kernel {t['ms']:.4f} ms (eager loop {t['eager_ms']:.4f}), "
-            f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms")
+
+
+# RMSNorm's timed rows at D=4096: decode (1, 4, 8), an engine prefill chunk
+# (64), generate's prefill (512), the table's earlier shape (2048, L2-warm),
+# a shape beyond the 50 MB L2 (16384: 128 MiB in, 128 MiB out) where the
+# bound is HBM bandwidth, and train_parity's f32 rows (256).
+RMS_SHAPES = ((1, "bf16"), (4, "bf16"), (8, "bf16"), (64, "bf16"), (512, "bf16"), (2048, "bf16"),
+              (16384, "bf16"), (256, "f32"))
+RMS_RECORD_N = 16384
+L2_BYTES = 50e6
+
+
+def _time_rmsnorm(results: dict, randn) -> None:
+    """RMSNorm at RMS_SHAPES: checked against the plain version, then timed
+    by graph replay and eagerly, beside `F.rms_norm`, the bytes bound (x
+    read, y written, the weight at its own dtype) and the launch floor
+    (graph replay of a one-element torch kernel)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.kernels import rmsnorm as rk
+    from ray_tpu_torch.ops.norms import rmsnorm_plain
+
+    one = torch.zeros(1, device="cuda")
+    floor_ms = cuda_ms(lambda: one.add_(1))[0]
+    log(f"launch floor: a one-element torch kernel {floor_ms:.4f} ms per call (graph replay)")
+    D, rows, worst = 4096, [], 0.0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for N, dname in RMS_SHAPES:
+        dt = torch.bfloat16 if dname == "bf16" else torch.float32
+        tol = TOL["bf16"] if dname == "bf16" else TOL["f32_rmsnorm"]
+        x = randn(N, D, dtype=dt)
+        w = (1 + 0.1 * randn(D, dtype=torch.float32)).to(dt)
+        want = rmsnorm_plain(x, w)
+        err = compare(f"rmsnorm timed N={N} D={D} {dname}", rk.rmsnorm_fwd(x, w), want, tol)
+        worst = max(worst, err)
+        del want
+        nbytes = 2 * N * D * x.element_size() + D * w.element_size()
+        bytes_s, ops_s = nbytes / H100_BYTES_PER_S, 4 * N * D / H100_F32_FLOPS
+        q = rk.plan(N, D, dt, D, x.data_ptr(), x.data_ptr(), sms, w.data_ptr())
+        ms, eager_ms = cuda_ms(lambda: rk.rmsnorm_fwd(x, w))
+        row = dict(
+            N=N, D=D, dtype=dname, ms=ms, eager_ms=eager_ms,
+            library_ms=cuda_ms(lambda: F.rms_norm(x, (D,), w, 1e-6))[0],
+            bound_ms=max(bytes_s, ops_s) * 1e3, bound_by="operations" if ops_s > bytes_s else "bytes",
+            l2_warm=nbytes < L2_BYTES, max_abs_err=err,
+            plan=f"{q.path} T={q.threads_per_row} R={q.rows_per_cta} NV={q.nv} grid={q.grid}")
+        if N == RMS_RECORD_N:
+            row["plain_ms"] = cuda_ms(lambda: rmsnorm_plain(x, w), iters=5)[0]
+            # A device copy of x's bytes: what any kernel that reads x once and
+            # writes y once reaches on this card at this size.
+            out = torch.empty_like(x)
+            row["copy_ms"] = cuda_ms(lambda: out.copy_(x))[0]
+            log(f"rmsnorm N={N}: a plain copy of the same bytes (torch copy_) {row['copy_ms']:.4f} ms, "
+                f"{row['bound_ms'] / row['copy_ms']:.1%} of the bound")
+            del out
+        rows.append(row)
+        log(f"rmsnorm N={N} D={D} {dname}: {ms:.4f} ms (eager {eager_ms:.4f}), "
+            f"F.rms_norm {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+            f"{row['bound_ms'] / ms:.1%} of it{', L2-warm' if row['l2_warm'] else ''}), launch floor "
+            f"{floor_ms:.4f} ms; plan {row['plan']}")
+        del x
+    torch.cuda.empty_cache()
+    rec = next(r for r in rows if r["N"] == RMS_RECORD_N)
+    results["rmsnorm"] = dict(
+        name="rmsnorm", route="cuda", source="ray_tpu_torch/kernels/csrc/rmsnorm.cu",
+        replaces="ray_tpu/ops/norms.py:30", max_abs_err=worst, bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+        shape=f"N={RMS_RECORD_N} D={D} bf16 x, bf16 w", ms=rec["ms"], eager_ms=rec["eager_ms"],
+        plain_ms=rec["plain_ms"], library_ms=rec["library_ms"], copy_ms=rec["copy_ms"], shapes=rows,
+        launch_floor_ms=floor_ms,
+    )
 
 
 def _times(kernel, plain, library) -> dict:
@@ -767,12 +853,20 @@ def phase_generate(cfg, params, launches: dict) -> None:
     if nf != L or nr != (2 * L + 1) * N:
         raise AssertionError(f"launch counts flash={nf} (want {L}), rmsnorm={nr} (want {(2 * L + 1) * N})")
 
-    _profile("generate llama-7b bf16 B=4 prompt=128 new=8", lambda: make_generate(cfg, 8)(params, prompt))
+    # Device events per forward: every forward runs 2L+1 norms, one RMSNorm
+    # launch each, so the profiled call's forwards are its launches / (2L+1).
+    before = rmsnorm_fwd.launches
+    events = _profile("generate llama-7b bf16 B=4 prompt=128 new=8", lambda: make_generate(cfg, 8)(params, prompt))
+    forwards = (rmsnorm_fwd.launches - before) // (2 * L + 1)
+    if events:
+        log(f"generate profile: {events} device events over {forwards} forwards (prefill + decode steps) = "
+            f"{events / forwards:.1f} per forward")
 
 
-def _profile(label: str, fn) -> None:
+def _profile(label: str, fn):
     """Device busy time, idle share and the top kernels of one call of fn,
-    from torch.profiler (the profiler's own overhead lengthens host time)."""
+    from torch.profiler (the profiler's own overhead lengthens host time).
+    Returns the number of device events (None when none were recorded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -789,7 +883,7 @@ def _profile(label: str, fn) -> None:
             by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     if not spans:
         log(f"profile {label}: no device events recorded (device time not measured)")
-        return
+        return None
     spans.sort()
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s0, e0 in spans[1:]:
@@ -805,6 +899,7 @@ def _profile(label: str, fn) -> None:
         f"(idle share {1 - busy / window:.3f}), {len(spans)} device events")
     for name, us in top:
         log(f"  {us / 1e3:8.2f} ms  {us / busy:6.1%}  {name[:100]}")
+    return len(spans)
 
 
 def phase_engine(cfg, params, launches: dict) -> None:
@@ -960,7 +1055,10 @@ def main(argv=None) -> int:
     # path's prefill shape, and at a long (S=2048) prompt.
     extra = ("pair_ms", "pair_profiled_ms", "library_eager_ms", "train_shape", "train_shape_ms", "train_shape_bound_ms", "train_shape_bound_by",
              "train_shape_plain_ms", "train_shape_library_ms", "generate_shape_ms",
-             "generate_shape_library_ms", "long_shape_ms", "long_shape_library_ms")
+             "generate_shape_library_ms", "long_shape_ms", "long_shape_library_ms",
+             # rmsnorm: every timed row (kernel, F.rms_norm, bound), the launch floor, a
+             # plain copy of the record shape's bytes
+             "shapes", "launch_floor_ms", "copy_ms")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
                                   for r in results.values()]}), flush=True)
     print(card_line(), flush=True)

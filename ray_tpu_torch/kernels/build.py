@@ -131,8 +131,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rt_flash_bwd_dkv.restype = i
     lib.rt_flash_bwd_plan_bytes.argtypes = []
     lib.rt_flash_bwd_plan_bytes.restype = i
-    lib.rt_rmsnorm.argtypes = [p, p, p, i, i, ll, f, i, p]  # x, w, y, N, D, row stride, eps, dtype, stream
+    # x, w, y, N, D, row stride (elements), eps, x dtype code, w dtype code, launch plan
+    # (rmsnorm.LaunchPlan), stream
+    lib.rt_rmsnorm.argtypes = [p, p, p, i, i, ll, f, i, i, p, p]
     lib.rt_rmsnorm.restype = i
+    lib.rt_rmsnorm_plan_bytes.argtypes = []
+    lib.rt_rmsnorm_plan_bytes.restype = i
     lib.rt_error_string.argtypes = [i]
     lib.rt_error_string.restype = ctypes.c_char_p
 

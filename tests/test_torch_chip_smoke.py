@@ -101,3 +101,37 @@ def test_bad_sass_fails(case):
     counts = chip_smoke.sass_counts(sass)
     with pytest.raises(AssertionError):
         chip_smoke.check_sass(counts)
+
+
+RMS_REGS = "_ZN43_GLOBAL__N__ca1deaa9_10_rmsnorm_cu_f7e8034512rmsnorm_regsILi2ELi4ELi1EEEvPKhS2_PhiixfNS_9RmsLaunchE"
+RMS_ROWS = "_ZN43_GLOBAL__N__ca1deaa9_10_rmsnorm_cu_f7e8034512rmsnorm_rowsILi4ELi2ELb1EEEvPKhS2_Phiixf"
+
+
+def _rmsnorm_fns(leave_out=()):
+    """A mangled name for every RMSNorm instantiation but `leave_out`."""
+    types = {"bf16": "2", "f32": "4"}
+    fns = []
+    for name in chip_smoke.rmsnorm_expected():
+        if name in leave_out:
+            continue
+        kernel, x, w, kind = name.split()
+        tail = f"Li{kind[3:]}E" if kind.startswith("NV=") else f"Lb{int(kind == 'vector')}E"
+        fns.append(f"_ZN43_GLOBAL__N__ca1deaa9_10_rmsnorm_cu_f7e8034512{kernel}ILi{types[x[2:]]}ELi{types[w[2:]]}E"
+                   f"{tail}EvPKh")
+    return fns
+
+
+@pytest.mark.parametrize("case", ["clean", "spill", "missing"])
+def test_rmsnorm_build_guard(case):
+    """RMSNorm instantiations are named by kernel, dtypes and NV (or load
+    width); a spill or a missing instantiation in the ptxas report fails."""
+    assert [chip_smoke.rmsnorm_instantiation(f) for f in (RMS_REGS, RMS_ROWS, FN)] == [
+        "rmsnorm_regs x=bf16 w=f32 NV=1", "rmsnorm_rows x=f32 w=bf16 vector", None]
+    assert len(chip_smoke.rmsnorm_expected()) == 16
+    fns = _rmsnorm_fns(leave_out=("rmsnorm_rows x=f32 w=f32 scalar",) if case == "missing" else ())
+    report = "\n".join([_report(fn=FN)] + [_report(spill_bytes=8 if case == "spill" and fn == fns[3] else 0, fn=fn)
+                                            for fn in fns])
+    spills = chip_smoke.spill_stores(report)
+    assert len(spills) == len(fns) + 1 and spills[FN] == 0
+    assert chip_smoke.missing_rmsnorm(spills) == (["rmsnorm_rows x=f32 w=f32 scalar"] if case == "missing" else [])
+    assert any(spills.values()) == (case == "spill")

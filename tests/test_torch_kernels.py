@@ -145,12 +145,24 @@ def test_flash_kernel_refuses_nonpositive_scale(cuda):
         flash_fwd(x, x, x, True, 0.0)
 
 
+# The main path's rows (D=4096: decode 1-8, an engine chunk 64, generate's
+# prefill 512, a shape beyond L2 16384), ragged rows, narrow and wide D
+# (4097 and 100 bf16 take the scalar path; 8192 f32 and 40000 are too wide
+# for registers and take the vector path).
+_RMS_CASES = ([(N, 4096) for N in (1, 4, 7, 8, 64, 512, 16384)] + [(4096, 768), (5, 100), (3, 4097)]
+              + [(N, D) for D in (64, 100, 768, 4097, 8192) for N in (3, 300)] + [(2, 40000)])
+_DTYPES = [torch.bfloat16, torch.float32]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("N,D", [(1, 4096), (7, 4096), (4096, 768), (5, 100), (3, 4097)])
-def test_rmsnorm_kernel_matches_plain(cuda, dtype, N, D):
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("w_dtype", _DTYPES)
+@pytest.mark.parametrize("N,D", _RMS_CASES)
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, w_dtype, N, D):
+    """x and the weight each in f32 or bf16; the weight is read in its own
+    dtype (no cast before the kernel)."""
     x = _randn((N, D), dtype, cuda, 4) * 3
-    w = (1 + 0.1 * _randn((D,), torch.float32, cuda, 5)).to(dtype)
+    w = (1 + 0.1 * _randn((D,), torch.float32, cuda, 5)).to(w_dtype)
     before = rmsnorm_fwd.launches
     y = rmsnorm(x, w)
     torch.cuda.synchronize()
@@ -165,6 +177,74 @@ def test_rmsnorm_kernel_reads_row_strided_input(cuda):
     w = _randn((512,), torch.float32, cuda, 7)
     torch.testing.assert_close(rmsnorm_fwd(x, w).float(), rmsnorm_plain(x, w).float(),
                                atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_rmsnorm_kernel_reads_a_misaligned_base(cuda, dtype):
+    """x[:, 1:] of a wider tensor: every row starts one element past a
+    16-byte boundary, so no 16-byte load may touch it (scalar path); a
+    weight one element past a boundary is read by elements."""
+    x = (_randn((64, 4097), dtype, cuda, 10) * 3)[:, 1:]
+    w = (1 + 0.1 * _randn((4097,), torch.float32, cuda, 11)).to(dtype)[1:]
+    assert x.data_ptr() % 16 != 0 and w.data_ptr() % 16 != 0
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    aligned_x = x.contiguous()
+    for xx in (x, aligned_x):  # scalar path; then the register path with element weight loads
+        torch.testing.assert_close(rmsnorm_fwd(xx, w).float(), rmsnorm_plain(xx, w).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("N,D", [(4, 4096), (2048, 4096), (16384, 4096), (300, 4097)])
+def test_rmsnorm_kernel_is_deterministic(cuda, dtype, N, D):
+    """Bitwise-equal results over repeated calls (at N=16384 each CTA takes
+    many row groups, alternating its two register buffers)."""
+    x = _randn((N, D), dtype, cuda, 12) * 3
+    w = (1 + 0.1 * _randn((D,), torch.float32, cuda, 13)).to(dtype)
+    first = rmsnorm_fwd(x, w)
+    for _ in range(5):
+        assert torch.equal(rmsnorm_fwd(x, w), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [4, 512])
+def test_rmsnorm_call_is_one_device_kernel(cuda, N):
+    """With a bf16 weight (the serving path's), a call is one launch: no cast
+    kernel before the norm, counted on the device by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = _randn((N, 4096), torch.bfloat16, cuda, 14)
+    w = (1 + 0.1 * _randn((4096,), torch.float32, cuda, 15)).to(torch.bfloat16)
+    rmsnorm(x, w)  # build and warm up outside the profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rmsnorm(x, w)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "rmsnorm" in kernels[0], kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_rmsnorm_op_gradient_on_the_card_matches_the_cpu(cuda, dtype):
+    """The custom op ray_tpu_torch::rmsnorm: kernel forward, plain VJP."""
+    cpu = torch.device("cpu")
+    x0 = _randn((64, 4096), torch.float32, cpu, 16) * 3
+    w0 = 1 + 0.1 * _randn((4096,), torch.float32, cpu, 17)
+    g0 = _randn((64, 4096), torch.float32, cpu, 18)
+    grads = {}
+    for dev in (cpu, cuda):
+        x = x0.to(dev, dtype, copy=True).requires_grad_()
+        w = w0.to(dev, dtype, copy=True).requires_grad_()
+        y = rmsnorm(x, w)
+        assert y.grad_fn is not None
+        y.backward(g0.to(dev, dtype))
+        grads[dev.type] = (y.detach().cpu().float(), x.grad.cpu().float(), w.grad.cpu().float())
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    for name, got, want in zip(("y", "dx", "dw"), grads["cuda"], grads["cpu"]):
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= tol * max(scale, 1.0), name
 
 
 def _bwd_pair(q, k, v, o, lse, do, causal, scale):
