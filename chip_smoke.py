@@ -19,7 +19,10 @@ Phases:
               forward with lse at the gpt2-large training shape (each also
               checked against its plain version there), RMSNorm at the main
               path's rows (D=4096: N = 1, 4, 8, 64, 512, 2048, 16384 bf16,
-              256 f32) beside a one-element kernel's launch floor
+              256 f32) beside a one-element kernel's launch floor; the
+              attention op (forward and gradient) at a head dim the
+              kernels pad (80 -> 128) and at a sequence split over several
+              launches of each kernel (S=32769, D=128)
   4. parity   llama-7b widths, 2 layers, f32: make_generate and
               InferenceEngine on the card vs make_generate on the CPU
   5. train_parity  llama-7b widths, 2 layers, f32, remat "attn": loss and
@@ -31,6 +34,11 @@ Phases:
   7. generate full llama-7b, bf16, seeded random weights: make_generate
   8. engine   full llama-7b, bf16: the continuous-batching engine with
               prefix caching, chunked prefill and speculative decoding
+  9. runtime  the port's runtime in cluster mode on this machine: the GPU
+              detected, CPU workers forked from a template that sees no card,
+              an actor with num_gpus=1 that builds llama-7b bf16 (seed 0) and
+              generates the generate phase's tokens, put/get of 256 MiB, a
+              compiled-DAG round trip through a GPU actor
 
 Prints progress lines, one `{"kernels": [...]}` line, the card line, and
 last `{"ok": true, "device": {...}}`. Exits non-zero on any failure and
@@ -51,7 +59,8 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-PHASES = ("device", "build", "kernels", "parity", "train_parity", "train", "generate", "engine")
+PHASES = ("device", "build", "kernels", "parity", "train_parity", "train", "generate", "engine",
+          "runtime")
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, SXM
 H100_F32_FLOPS = 67e12     # CUDA-core f32 peak, SXM
 H100_BYTES_PER_S = 3.35e12
@@ -351,6 +360,7 @@ def phase_kernels(results: dict) -> None:
             flash_attention_plain(q, k, v, True, 128 ** -0.5), TOL["bf16"])
 
     _check_flash_bwd(randn, dtypes)
+    _check_flash_op_repairs(randn)
 
     for dname, dt in dtypes.items():
         tol = TOL["bf16"] if dname == "bf16" else TOL["f32_rmsnorm"]
@@ -528,6 +538,44 @@ def _check_flash_bwd(randn, dtypes) -> None:
     do = randn(B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
     _check_bwd_case(f"strided dO B={B} H={H} S={S} D={D} bf16", q, k, v, do.contiguous(), True, TOL["bf16"],
                     strided_do=do)
+
+
+def _check_flash_op_repairs(randn) -> None:
+    """The attention op (forward and gradient, so the three flash kernels)
+    against the plain versions at shapes one launch of the kernels could
+    not take: a head dim the kernels are not compiled for (zero-padded to
+    the next), and a sequence past every tile table (each kernel split into
+    several launches; the plain side holds several 4 GB f32 matrices)."""
+    import torch
+
+    from ray_tpu_torch.kernels.flash_bwd import flash_bwd_dkv, flash_bwd_dq
+    from ray_tpu_torch.kernels.flash_fwd import flash_fwd
+    from ray_tpu_torch.ops.attention import (flash_attention_bwd_plain, flash_attention_plain,
+                                             flash_attention_with_stats)
+
+    for tag, (B, H, S, D), want in (("padded D=80", (2, 3, 200, 80), (1, 1, 1)),
+                                    ("split S=32769 D=128", (1, 1, 32769, 128), (2, 3, 3))):
+        q, k, v = (randn(B, H, S, D, dtype=torch.bfloat16).requires_grad_(True) for _ in range(3))
+        do = randn(B, H, S, D, dtype=torch.bfloat16)
+        before = (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+        out, lse = flash_attention_with_stats(q, k, v, True)
+        out.backward(do)
+        torch.cuda.synchronize()
+        n = tuple(a - b for a, b in zip((flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches),
+                                        before))
+        if n != want:
+            raise AssertionError(f"flash op {tag}: launches (fwd, dq, dkv) {n}, want {want}")
+        with torch.no_grad():  # the gradient against the plain backward of the kernels' (o, lse)
+            ref, ref_lse = flash_attention_plain(q, k, v, True, return_lse=True)
+            compare(f"flash op {tag} out", out.detach(), ref, TOL["bf16"])
+            compare(f"flash op {tag} lse", lse, ref_lse, TOL["bf16"])
+            del ref, ref_lse
+            grads = flash_attention_bwd_plain(q, k, v, out.detach(), lse, do, True, D ** -0.5)
+            for name, x, w in zip(("dq", "dk", "dv"), (q, k, v), grads):
+                compare(f"flash op {tag} {name}", x.grad, w, TOL["bf16"])
+        del q, k, v, do, out, lse, grads
+        torch.cuda.empty_cache()
+        log(f"flash op {tag}: launches (fwd, dq, dkv) {n}, matches the plain versions")
 
 
 def _time_flash_train_shape(results: dict, randn) -> None:
@@ -823,35 +871,55 @@ def _llama_params():
     return cfg, params
 
 
-def phase_generate(cfg, params, launches: dict) -> None:
+# make_generate's shape in the generate and runtime phases: B, prompt, new tokens.
+GENERATE_SHAPE = (4, 128, 32)
+
+
+def _timed_generate(cfg, params, prompt, n: int):
+    """make_generate(cfg, n) on prompt after a warm-up call: (tokens, wall
+    s, launches per kernel in the timed call)."""
+    import torch
+
+    from ray_tpu_torch.models.gpt import make_generate
+
+    make_generate(cfg, 2)(params, prompt)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    gen = make_generate(cfg, n)
+    reset_launches()
+    t0 = time.perf_counter()
+    toks = gen(params, prompt)
+    torch.cuda.synchronize()
+    return toks, time.perf_counter() - t0, read_launches()
+
+
+def _check_generate(cfg, toks, counts: dict, where: str) -> None:
+    B, _, N = GENERATE_SHAPE
+    L = cfg.n_layers
+    if tuple(toks.shape) != (B, N) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{where}: bad generate output {tuple(toks.shape)}")
+    nf, nr = counts["flash_fwd"], counts["rmsnorm"]
+    if nf != L or nr != (2 * L + 1) * N:
+        raise AssertionError(f"{where}: launch counts flash={nf} (want {L}), rmsnorm={nr} "
+                             f"(want {(2 * L + 1) * N})")
+
+
+def phase_generate(cfg, params, launches: dict) -> dict:
     import torch
 
     from ray_tpu_torch.kernels.flash_fwd import flash_fwd
     from ray_tpu_torch.kernels.rmsnorm import rmsnorm_fwd
     from ray_tpu_torch.models.gpt import make_generate
 
-    B, S0, N = 4, 128, 32
+    B, S0, N = GENERATE_SHAPE
     prompt = torch.randint(0, cfg.vocab_size, (B, S0), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(3))
-    make_generate(cfg, 2)(params, prompt)  # warm-up: cuBLAS handles, allocator
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gen = make_generate(cfg, N)
-    reset_launches()
-    t0 = time.perf_counter()
-    toks = gen(params, prompt)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches["generate"] = read_launches()
-    nf, nr = flash_fwd.launches, rmsnorm_fwd.launches
-    L = cfg.n_layers
+    toks, wall, launches["generate"] = _timed_generate(cfg, params, prompt, N)
     log(f"generate llama-7b bf16 B={B} prompt={S0} new={N}: {B * N / wall:.1f} tokens/s, "
         f"{wall * 1e3:.1f} ms wall, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-        f"launches flash={nf} rmsnorm={nr}")
-    if tuple(toks.shape) != (B, N) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
-        raise AssertionError(f"bad generate output {tuple(toks.shape)}")
-    if nf != L or nr != (2 * L + 1) * N:
-        raise AssertionError(f"launch counts flash={nf} (want {L}), rmsnorm={nr} (want {(2 * L + 1) * N})")
+        f"launches flash={flash_fwd.launches} rmsnorm={rmsnorm_fwd.launches}")
+    _check_generate(cfg, toks, launches["generate"], "generate")
+    L = cfg.n_layers
 
     # Device events per forward: every forward runs 2L+1 norms, one RMSNorm
     # launch each, so the profiled call's forwards are its launches / (2L+1).
@@ -861,6 +929,7 @@ def phase_generate(cfg, params, launches: dict) -> None:
     if events:
         log(f"generate profile: {events} device events over {forwards} forwards (prefill + decode steps) = "
             f"{events / forwards:.1f} per forward")
+    return {"prompt": prompt.cpu(), "tokens": toks.cpu(), "tokens_per_s": B * N / wall}
 
 
 def _profile(label: str, fn):
@@ -992,6 +1061,252 @@ def phase_engine(cfg, params, launches: dict) -> None:
                              f"(want {(2 * L + 1) * n_fwd} for {n_fwd} forwards)")
 
 
+# ---------------------------------------------------------------- runtime
+RUNTIME_BOOT_TIMEOUT_S = 300.0   # the GPU actor's boot: worker, CUDA, kernels, llama-7b
+DAG_ROUND_TRIPS = 200
+
+
+class LlamaGenerator:
+    """The runtime phase's GPU actor: llama-7b bf16 at full width from the
+    generate phase's seed, on the card its worker was given, with the
+    kernel library the driver built (it must not build it again)."""
+
+    def __init__(self):
+        import torch
+
+        from ray_tpu_torch.kernels import build
+
+        self.prebuilt = (build.build_dir() / build.LIB_NAME).exists()
+        build.library()
+        self.cfg, self.params = _llama_params()
+        self.info = {
+            "pid": os.getpid(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device": torch.cuda.get_device_name(0),
+            "prebuilt": self.prebuilt,
+            "build_dir": str(build.build_dir()),
+        }
+
+    def ready(self) -> dict:
+        return self.info
+
+    def generate(self, prompt, n: int):
+        """(tokens, wall s, launches per kernel) of make_generate on prompt."""
+        toks, wall, counts = _timed_generate(self.cfg, self.params, prompt.to("cuda"), n)
+        return toks.cpu(), wall, counts
+
+
+class DecodeStep:
+    """A compiled-DAG stage on the card: a decode step's message (B token
+    ids, step counter) in, the ids moved through the card and the next
+    step out."""
+
+    def __init__(self):
+        import torch
+
+        self.device = torch.device("cuda")
+        torch.zeros(1, device=self.device)  # the CUDA context, before the first round trip
+
+    def step(self, msg):
+        import torch
+
+        ids, step = msg
+        return (torch.from_numpy(ids).to(self.device) + 1).cpu().numpy(), step + 1
+
+
+def _cpu_worker_probe() -> dict:
+    """What a CPU task's worker sees (it runs in that worker)."""
+    import torch
+
+    from ray_tpu_torch.core import forkserver
+
+    return {
+        "pid": os.getpid(),
+        "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "cuda_available": torch.cuda.is_available(),
+        "template": dict(forkserver.TEMPLATE_REPORT),
+        "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+        "reference": sorted(m for m in sys.modules if m == "ray_tpu" or m.startswith("ray_tpu.")),
+    }
+
+
+def _proc_stat(pid: int):
+    """(parent pid, start time, state) of a live process, from /proc."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            stat = f.read()
+    except OSError:
+        return None
+    fields = stat[stat.rindex(")") + 2:].split()
+    return int(fields[1]), fields[19], fields[0]
+
+
+def _descendants(root: int) -> dict:
+    """{pid: start time} of `root` and its live descendants: with the
+    runtime's controller as root, its forkserver template and workers."""
+    stats = {int(p): _proc_stat(int(p)) for p in os.listdir("/proc") if p.isdigit()}
+    children = {}
+    for pid, st in stats.items():
+        if st is not None:
+            children.setdefault(st[0], []).append(pid)
+    if stats.get(root) is None:
+        return {}
+    out, todo = {root: stats[root][1]}, [root]
+    while todo:
+        for child in children.get(todo.pop(), []):
+            out[child] = stats[child][1]
+            todo.append(child)
+    return out
+
+
+def _session_processes(known: dict, session_dir: str) -> list:
+    """(pid, command) of this run's runtime processes that are still alive:
+    those of `known` ({pid: start time}, taken before shutdown) that are
+    still the same process, and any whose environment names the session's
+    directory. Processes of other sessions on the machine are left alone."""
+    out = []
+    for p in os.listdir("/proc"):
+        if not p.isdigit() or int(p) == os.getpid():
+            continue
+        pid, st = int(p), _proc_stat(int(p))
+        if st is None or st[2] == "Z":
+            continue
+        ours = known.get(pid) == st[1]
+        if not ours and session_dir:
+            d = session_dir.encode()
+            try:
+                with open(f"/proc/{pid}/environ", "rb") as f:
+                    ours = any(v.split(b"=", 1)[-1] in (d, d + b".sock") or
+                               v.split(b"=", 1)[-1].startswith(d + b"/") for v in f.read().split(b"\0"))
+            except OSError:
+                continue
+        if ours:
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+            except OSError:
+                continue
+            out.append((pid, cmd))
+    return out
+
+
+def phase_runtime(generated: dict, launches: dict) -> None:
+    """The port's runtime in cluster mode (processes): GPU detection, CPU
+    workers without the card, a num_gpus=1 actor that must reproduce the
+    generate phase's greedy tokens, put/get throughput, and one
+    compiled-DAG channel through a GPU actor."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.kernels import build
+    from ray_tpu_torch.models.gpt import llama_7b
+    from ray_tpu_torch.util.accelerators import NvidiaGPUAcceleratorManager
+
+    log(f"runtime: GPU detection without a CUDA context: {NvidiaGPUAcceleratorManager().get_current_node_num_accelerators()} "
+        f"(CUDA_VISIBLE_DEVICES {os.environ.get('CUDA_VISIBLE_DEVICES', 'unset')}, "
+        f"/proc/driver/nvidia/gpus {'present' if os.path.isdir('/proc/driver/nvidia/gpus') else 'absent'})")
+    t0 = time.perf_counter()
+    rt.init(log_to_driver=False)  # cluster mode: a controller, a template, workers
+    backend = api._global_runtime().backend
+    session_dir, controller = backend.session_dir, backend._controller_proc.pid
+    try:
+        res = rt.cluster_resources()
+        log(f"runtime: cluster up in {time.perf_counter() - t0:.2f} s, resources {res}")
+        if res.get("GPU") != 1.0:
+            raise AssertionError(f"runtime: cluster_resources GPU {res.get('GPU')}, want 1.0")
+
+        probes = rt.get([rt.remote(_cpu_worker_probe).remote() for _ in range(4)], timeout=120)
+        for pr in probes:
+            bad = []
+            if pr["cuda_available"] or pr["cuda_visible_devices"] != "":
+                bad.append(f"sees the card (CUDA_VISIBLE_DEVICES {pr['cuda_visible_devices']!r})")
+            if pr["jax"] or pr["reference"]:
+                bad.append(f"loaded {pr['jax'] + pr['reference']}")
+            if not pr["template"]:
+                bad.append("was not forked from the template")
+            elif pr["template"]["cuda_initialized"] or not pr["template"]["torch"]:
+                bad.append(f"template {pr['template']}")
+            if bad:
+                raise AssertionError(f"runtime: CPU worker {pr['pid']}: " + "; ".join(bad))
+        log(f"runtime: {len(probes)} CPU tasks in {len({p['pid'] for p in probes})} forked workers: no card, "
+            f"no jax, nothing of ray_tpu; template {probes[0]['template']}")
+
+        B, S0, N = GENERATE_SHAPE
+        t0 = time.perf_counter()
+        actor = rt.remote(num_gpus=1)(LlamaGenerator).remote()
+        info = rt.get(actor.ready.remote(), timeout=RUNTIME_BOOT_TIMEOUT_S)
+        boot_s = time.perf_counter() - t0
+        if not info["prebuilt"] or info["build_dir"] != str(build.build_dir()):
+            raise AssertionError(f"runtime: the actor did not load the driver's kernel build: {info}")
+        log(f"runtime: num_gpus=1 actor booted with llama-7b bf16 in {boot_s:.2f} s "
+            f"(timeout {RUNTIME_BOOT_TIMEOUT_S:.0f} s; pid {info['pid']}, CUDA_VISIBLE_DEVICES "
+            f"{info['cuda_visible_devices']!r}, {info['device']}, kernels from {info['build_dir']})")
+        toks, wall, counts = rt.get(actor.generate.remote(generated["prompt"], N), timeout=600)
+        launches["runtime"] = counts
+        _check_generate(llama_7b(), toks, counts, "runtime actor")
+        want = generated["tokens"]
+        if not torch.equal(toks, want):
+            b, i = (int(x) for x in (toks != want).nonzero()[0])
+            raise AssertionError(f"runtime: the actor's tokens differ from the generate phase's first at "
+                                 f"batch {b} position {i}: {int(toks[b, i])} vs {int(want[b, i])}")
+        log(f"runtime: actor generate B={B} prompt={S0} new={N}: {B * N / wall:.1f} tokens/s in the actor "
+            f"against {generated['tokens_per_s']:.1f} in process; tokens equal the generate phase's; "
+            f"launches {counts}")
+
+        x = torch.randn(64 << 20)  # 256 MiB of f32
+        nbytes = x.numel() * x.element_size()
+        t0 = time.perf_counter()
+        ref = rt.put(x)
+        t1 = time.perf_counter()
+        y = rt.get(ref)
+        t2 = time.perf_counter()
+        if not torch.equal(x, y):
+            raise AssertionError("runtime: get(put(x)) != x")
+        log(f"runtime: put 256 MiB CPU tensor {nbytes / (t1 - t0) / 1e9:.3f} GB/s, get "
+            f"{nbytes / (t2 - t1) / 1e9:.3f} GB/s")
+        del x, y, ref
+
+        rt.kill(actor)  # frees the GPU resource (and its 13.5 GB) for the DAG's actor
+        del actor
+        with InputNode() as inp:
+            dag = rt.remote(num_gpus=1)(DecodeStep).bind().step.bind(inp)
+        compiled = dag.experimental_compile()
+        try:
+            lat = []
+            for i in range(DAG_ROUND_TRIPS + 10):
+                ids = np.arange(B, dtype=np.int64) + 1000 * i
+                t0 = time.perf_counter()
+                out_ids, step = compiled.execute((ids, i)).get(timeout=120)
+                if i >= 10:  # the first round trips warm the channels
+                    lat.append(time.perf_counter() - t0)
+                if step != i + 1 or not np.array_equal(out_ids, ids + 1):
+                    raise AssertionError(f"runtime: DAG round trip {i} returned {out_ids}, {step}")
+        finally:
+            compiled.teardown()
+        lat.sort()
+        log(f"runtime: compiled-DAG round trip driver -> GPU actor -> driver (B={B} ids + step): "
+            f"p50 {lat[len(lat) // 2] * 1e6:.1f} us, p90 {lat[int(len(lat) * 0.9)] * 1e6:.1f} us over "
+            f"{len(lat)}")
+    finally:
+        known = _descendants(controller)
+        rt.shutdown()
+        deadline = time.monotonic() + 30
+        while _session_processes(known, session_dir) and time.monotonic() < deadline:
+            time.sleep(0.5)
+        left = [(pid, f"parent {(_proc_stat(pid) or ('gone',))[0]}", cmd)
+                for pid, cmd in _session_processes(known, session_dir)]
+        for pid, _, _ in left:
+            try:
+                os.kill(pid, 9)
+            except OSError:
+                pass
+    if left:
+        raise AssertionError(f"runtime: processes outlived shutdown (killed): {left}")
+
+
 def main(argv=None) -> int:
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1032,12 +1347,21 @@ def main(argv=None) -> int:
         phase_train_parity(launches)
     if "train" in phases:
         phase_train(launches)
+    generated = None
     if "generate" in phases or "engine" in phases:
         cfg, params = _llama_params()
         if "generate" in phases:
-            phase_generate(cfg, params, launches)
+            generated = phase_generate(cfg, params, launches)
         if "engine" in phases:
             phase_engine(cfg, params, launches)
+        del params  # the runtime phase's actor loads its own copy
+        torch.cuda.empty_cache()
+    if "runtime" in phases:
+        if generated is None:
+            ap.error("the runtime phase holds its actor's tokens against the generate phase's: run both")
+        log(f"driver device memory before the runtime phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+            "allocated")
+        phase_runtime(generated, launches)
     log(f"wall time {time.perf_counter() - t_start:.1f} s")
 
     if phases != list(PHASES):

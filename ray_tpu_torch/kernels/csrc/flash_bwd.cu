@@ -69,7 +69,7 @@
 // accumulators), and descriptors are uniform base descriptors plus
 // compile-time offsets. chip_smoke.py fails the build if ptxas serialises
 // them or spills.
-// The launch plan is Python's (`flash_bwd.plan`, tested on the CPU): the
+// The launch plan is Python's (`flash_bwd.launches`, tested on the CPU): the
 // stages, shared memory, grid, the work items in launch order with the
 // stream tiles each warpgroup reads (a __grid_constant__ table), and the
 // tensor maps (rank 4 over [B, H, L, D] with the tensors' own byte strides,

@@ -63,7 +63,7 @@
 // and a ragged tail zero-fills inside its own head. They are built on the
 // host per call and passed as __grid_constant__ parameters, which keeps a
 // launch capturable in a CUDA graph.
-// The launch plan is Python's (`flash_fwd.plan`, tested on the CPU): the
+// The launch plan is Python's (`flash_fwd.launches`, tested on the CPU): the
 // stages, shared memory, grid, the q tiles in launch order with the key
 // tiles each warpgroup reads (a __grid_constant__ table), and each tensor
 // map's dims, byte strides and box. This file computes none of them; it

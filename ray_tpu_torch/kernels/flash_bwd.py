@@ -17,12 +17,18 @@ runs) use plain FMA.
 holds in shared memory, and written as f32 [B*H, S] for the dK/dV kernel:
 `flash_bwd` launches dQ first and dK/dV after it on the same stream.
 
-`plan` owns every launch decision of the bf16 kernels that follows from the
-shapes: for each kernel the stages, shared memory, grid, the work items in
-launch order with the stream tiles each consumer warpgroup reads, and the
-TMA tensor maps (dims, byte strides, boxes). The kernels use these values as
+`launches` owns every launch decision of the bf16 kernels that follows from
+the shapes; each launch's plan holds the kernel's stages, shared memory,
+grid, the work items in launch order with the stream tiles each consumer
+warpgroup reads, and the TMA tensor maps (dims, byte strides, boxes). The kernels use these values as
 given (`LaunchPlan` is the C side's `BwdLaunch`, byte for byte) and refuse
 only a tile shape they were not compiled for.
+
+`launches` splits one call of a kernel into launches as the forward does
+(`flash_fwd.launches`): outer tiles in groups of at most MAX_TILES (dQ
+works per q tile, dK/dV per key tile, so the launches' outputs do not
+overlap), heads in ranges of at most MAX_BH. Every dQ launch runs before
+the first dK/dV launch, which reads Δ of every q row.
 
 `flash_bwd_dq.launches` and `flash_bwd_dkv.launches` count launches of each
 kernel, and only those.
@@ -40,15 +46,19 @@ from . import build
 from .flash_fwd import (
     ELEM,
     HEAD_DIMS,
+    MAX_BH,
     SMEM_ALIGN_SLACK,
     SMEM_LIMIT,
     WG_ROWS,
+    Launch,
     TmaMap,
     _kernel_view,
     _sm_count,
     _TmaSpec,
+    bh_chunks,
     byte_strides,
     kv_tiles_for_rows,
+    split,
     swizzle_bytes,
 )
 
@@ -88,12 +98,6 @@ class KernelPlan:
     n_items: int            # item i: tile i // (BH * splits), head (i % (BH * splits)) // splits
     grid: int               # persistent CTAs: CTA c takes items c, c + grid, ...
     tiles: tuple            # Tile per outer tile, in launch order (heaviest first)
-
-
-@dataclass(frozen=True)
-class BwdPlan:
-    dq: KernelPlan
-    dkv: KernelPlan
 
 
 def dq_warpgroups(D: int) -> int:
@@ -199,32 +203,40 @@ def dkv_tiles(S: int, Skv: int, causal: bool, D: int) -> tuple:
     return tuple(sorted(tiles, key=lambda t: -(t.hi - t.lo)))
 
 
-def _kernel_plan(kind: str, B: int, H: int, S: int, Skv: int, D: int, causal: bool,
-                 sm_count: int) -> KernelPlan:
-    if kind == "dq":
-        nwg, rows, stream, splits = dq_warpgroups(D), WG_ROWS * dq_warpgroups(D), dq_block_k(D), 1
-        tiles = dq_tiles(S, Skv, causal, D)
-    else:
-        nwg, rows, stream, splits = 2, 2 * WG_ROWS, dkv_block_q(D), dkv_splits(D)
-        tiles = dkv_tiles(S, Skv, causal, D)
-    if len(tiles) > MAX_TILES or max(t.hi for t in tiles) > 0xFFFF:
-        raise ValueError(f"S={S}, Skv={Skv} at D={D}: the {kind} kernel takes at most {MAX_TILES} "
-                         "tiles per head and 65535 stream tiles")
-    stages, sw = stages_for(kind, D), swizzle_bytes(D)
-    n_items = len(tiles) * B * H * splits
-    return KernelPlan(kind=kind, warpgroups=nwg, block_rows=rows, block_stream=stream, splits=splits,
-                      stages=stages, swizzle=sw, box_cols=sw // ELEM, smem_bytes=smem_bytes(kind, D, stages),
-                      BH=B * H, n_items=n_items, grid=min(n_items, sm_count), tiles=tiles)
-
-
-@lru_cache(maxsize=256)
-def plan(B: int, H: int, S: int, Skv: int, D: int, causal: bool, sm_count: int) -> BwdPlan:
-    """The bf16 kernels' launch plans for these shapes on a card with
-    `sm_count` SMs."""
+def _tiles(kind: str, S: int, Skv: int, D: int, causal: bool) -> tuple:
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
-    return BwdPlan(dq=_kernel_plan("dq", B, H, S, Skv, D, causal, sm_count),
-                   dkv=_kernel_plan("dkv", B, H, S, Skv, D, causal, sm_count))
+    tiles = dq_tiles(S, Skv, causal, D) if kind == "dq" else dkv_tiles(S, Skv, causal, D)
+    if max(t.hi for t in tiles) > 0xFFFF:
+        raise ValueError(f"S={S}, Skv={Skv} at D={D}: the {kind} kernel takes at most 65535 "
+                         "stream tiles")
+    return tiles
+
+
+def _kernel_plan(kind: str, BH: int, D: int, tiles: tuple, sm_count: int) -> KernelPlan:
+    if kind == "dq":
+        nwg, rows, stream, splits = dq_warpgroups(D), WG_ROWS * dq_warpgroups(D), dq_block_k(D), 1
+    else:
+        nwg, rows, stream, splits = 2, 2 * WG_ROWS, dkv_block_q(D), dkv_splits(D)
+    stages, sw = stages_for(kind, D), swizzle_bytes(D)
+    n_items = len(tiles) * BH * splits
+    return KernelPlan(kind=kind, warpgroups=nwg, block_rows=rows, block_stream=stream, splits=splits,
+                      stages=stages, swizzle=sw, box_cols=sw // ELEM, smem_bytes=smem_bytes(kind, D, stages),
+                      BH=BH, n_items=n_items, grid=min(n_items, sm_count), tiles=tiles)
+
+
+@lru_cache(maxsize=512)
+def launches(kind: str, B: int, H: int, S: int, Skv: int, D: int, causal: bool, sm_count: int,
+             bf16: bool = True) -> tuple:
+    """The launches of one call of the `kind` kernel ("dq" or "dkv"): every
+    (head range, group of at most MAX_TILES outer tiles) for bf16, every
+    head range for f32."""
+    chunks = bh_chunks(B, H)
+    if not bf16:
+        return tuple(Launch(*c, None) for c in chunks)
+    groups = split(_tiles(kind, S, Skv, D, causal), MAX_TILES)
+    return tuple(Launch(b0, b1, h0, h1, _kernel_plan(kind, (b1 - b0) * (h1 - h0), D, g, sm_count))
+                 for b0, b1, h0, h1 in chunks for g in groups)
 
 
 def tma_maps(p: KernelPlan, *tensors) -> tuple:
@@ -304,8 +316,8 @@ def _checked(q, k, v, do, causal: bool, rows: dict):
         raise ValueError(f"k{tuple(k.shape)} does not match q{tuple(q.shape)}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
-    if S < 1 or Skv < 1 or B * H > 65535:
-        raise ValueError(f"unsupported sizes B*H={B * H}, S={S}, Skv={Skv}")
+    if S < 1 or Skv < 1:
+        raise ValueError(f"unsupported sizes S={S}, Skv={Skv}")
     if causal and Skv < S:
         raise ValueError("causal attention needs Skv >= S (queries are end-aligned)")
     for name, t in rows.items():
@@ -316,28 +328,34 @@ def _checked(q, k, v, do, causal: bool, rows: dict):
             *(t.reshape(B * H, S).contiguous() for t in rows.values()))
 
 
-def _launch(fn: str, kind: str, inputs: tuple, others: tuple, map_tensors: tuple, causal: bool,
-            scale: float):
-    """Call `fn` on the kernel library: the `inputs` (q, k, v, ... in bf16 or
-    f32; their strides are passed in bytes), then `others` (lse, Δ and the
-    outputs), the sizes, the strides, and for bf16 the plan of `kind` with
-    tensor maps over `map_tensors`."""
+def _launch(fn: str, kind: str, inputs: tuple, rows: tuple, outs: tuple, map_order: tuple,
+            causal: bool, scale: float) -> int:
+    """Call `fn` on the kernel library once per launch of `kind`: the
+    `inputs` (q, k, v, ... [B, H, L, D] in bf16 or f32; their strides are
+    passed in bytes), the `rows` (lse, Δ: [B*H, S] f32), the `outs` ([B, H,
+    L, D]), each at the launch's heads, then the sizes, the strides, and for
+    bf16 the launch's plan with tensor maps over (inputs + outs)[i] for i in
+    `map_order`. Returns the number of launches."""
     q, k = inputs[:2]
     B, H, S, D = q.shape
     lib = build.library()
-    lp = None  # the f32 kernels tile themselves
-    if q.dtype == torch.bfloat16:
-        p = getattr(plan(B, H, S, k.shape[2], D, bool(causal), _sm_count(q.device)), kind)
-        lp = launch_plan(p, *map_tensors)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
         _check_plan_layout(lib)
-    err = getattr(lib, fn)(
-        *(t.data_ptr() for t in inputs + others),
-        B, H, S, k.shape[2], D, *(s for t in inputs for s in byte_strides(t)),
-        int(causal), float(scale), build.dtype_code(q.dtype),
-        ctypes.byref(lp) if lp is not None else None,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    build.check(lib, err, fn)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lns = launches(kind, B, H, S, k.shape[2], D, bool(causal), _sm_count(q.device), bf16)
+    for ln in lns:
+        ins, os_ = tuple(ln.heads(t) for t in inputs), tuple(ln.heads(t) for t in outs)
+        views = ins + os_
+        lp = launch_plan(ln.plan, *(views[i] for i in map_order)) if bf16 else None  # f32 tiles itself
+        err = getattr(lib, fn)(
+            *(t.data_ptr() for t in ins + tuple(ln.rows(r, H) for r in rows) + os_),
+            ln.b1 - ln.b0, ln.h1 - ln.h0, S, k.shape[2], D, *(s for t in ins for s in byte_strides(t)),
+            int(causal), float(scale), build.dtype_code(q.dtype),
+            ctypes.byref(lp) if lp is not None else None, stream,
+        )
+        build.check(lib, err, fn)
+    return len(lns)
 
 
 def flash_bwd_dq(q, k, v, o, do, lse, causal: bool, scale: float):
@@ -352,8 +370,9 @@ def flash_bwd_dq(q, k, v, o, do, lse, causal: bool, scale: float):
     B, H, S, _ = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     delta = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
-    _launch("rt_flash_bwd_dq", "dq", (q, k, v, o, do), (lse, delta, dq), (q, do, o, k, v, dq), causal, scale)
-    flash_bwd_dq.launches += 1
+    # tensor maps over q, dO, O, k, v, dq
+    flash_bwd_dq.launches += _launch("rt_flash_bwd_dq", "dq", (q, k, v, o, do), (lse, delta), (dq,),
+                                     (0, 4, 3, 1, 2, 5), causal, scale)
     return dq, delta
 
 
@@ -363,8 +382,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
     q, k, v, do, lse, delta = _checked(q, k, v, do, causal, {"lse": lse, "delta": delta})
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    _launch("rt_flash_bwd_dkv", "dkv", (q, k, v, do), (lse, delta, dk, dv), (q, do, k, v, dk, dv), causal, scale)
-    flash_bwd_dkv.launches += 1
+    # tensor maps over q, dO, k, v, dk, dv
+    flash_bwd_dkv.launches += _launch("rt_flash_bwd_dkv", "dkv", (q, k, v, do), (lse, delta), (dk, dv),
+                                      (0, 3, 1, 2, 4, 5), causal, scale)
     return dk, dv
 
 

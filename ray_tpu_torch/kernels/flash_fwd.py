@@ -11,13 +11,19 @@ and O += P·V with `wgmma` (P from registers), taking turns at the tensor
 cores; persistent CTAs walk the work items heaviest-first. See the source
 for the design. The f32 path (parity runs) is a plain-FMA kernel.
 
-`plan` owns every launch decision of the bf16 kernel that follows from the
-shapes: stages, shared memory, grid, the q tiles in launch order with the
-key tiles each consumer warpgroup reads, and the TMA tensor maps (dims,
-byte strides, boxes). The kernel uses these values as given (`LaunchPlan`
+`launches` owns every launch decision of the bf16 kernel that follows from
+the shapes; each launch's plan holds its stages, shared memory, grid, the q
+tiles in launch order with the key tiles each consumer warpgroup reads, and
+the TMA tensor maps (dims, byte strides, boxes). The kernel uses these values as given (`LaunchPlan`
 is the C side's `FwdLaunch`, byte for byte); it only refuses a plan whose
 tile shape is not the one it was compiled for (the wgmma shapes are
 compile-time), so the CPU tests reach every value the kernel runs with.
+
+`launches` splits one call into kernel launches where a plan's table or the
+grid would overflow: q tiles in groups of at most MAX_Q_TILES per launch
+(each launch writes the rows and lse of its own tiles), and heads in ranges
+of at most MAX_BH (the f32 kernel's grid is (q tiles, B*H)). At the main
+path's shapes a call is one launch.
 
 `flash_fwd.launches` counts launches of the kernel, and only those.
 """
@@ -27,6 +33,7 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass
 from functools import lru_cache
+from typing import Optional
 
 import torch
 
@@ -35,6 +42,7 @@ from . import build
 HEAD_DIMS = (32, 64, 128, 256)
 MAX_STAGES = 4
 MAX_Q_TILES = 256           # q tiles per head a plan may list (kMaxQTiles in the source)
+MAX_BH = 65535              # heads (B*H) one launch may take: the f32 kernel's grid.y
 SMEM_LIMIT = 232_448        # dynamic shared memory one block may use on the H100
 SMEM_ALIGN_SLACK = 1024     # the kernel aligns its tiles to 1024 bytes (the swizzle atom)
 ELEM = 2                    # bytes of a bf16 element
@@ -147,21 +155,78 @@ def q_tiles(S: int, Skv: int, causal: bool, D: int) -> tuple:
     return tuple(sorted(tiles, key=lambda t: -t.n_kv))
 
 
-@lru_cache(maxsize=256)
-def plan(B: int, H: int, S: int, Skv: int, D: int, causal: bool, sm_count: int) -> FwdPlan:
-    """The bf16 kernel's launch plan for these shapes on a card with
-    `sm_count` SMs."""
+def _plan(BH: int, D: int, tiles: tuple, sm_count: int) -> FwdPlan:
+    bq, bk, stages, sw = block_q(D), block_k(D), stages_for(D), swizzle_bytes(D)
+    n_items = len(tiles) * BH
+    return FwdPlan(block_q=bq, block_k=bk, stages=stages, swizzle=sw, box_cols=sw // ELEM,
+                   smem_bytes=smem_bytes(D, stages), BH=BH, n_items=n_items,
+                   grid=min(n_items, sm_count), tiles=tiles)
+
+
+def _tiles(S: int, Skv: int, D: int, causal: bool) -> tuple:
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
-    bq, bk, stages, sw = block_q(D), block_k(D), stages_for(D), swizzle_bytes(D)
     tiles = q_tiles(S, Skv, causal, D)
-    if len(tiles) > MAX_Q_TILES or tiles[0].n_kv > 0xFFFF:
-        raise ValueError(f"S={S}, Skv={Skv} at D={D}: more q tiles than {MAX_Q_TILES} "
-                         "or key tiles than 65535")
-    n_items = len(tiles) * B * H
-    return FwdPlan(block_q=bq, block_k=bk, stages=stages, swizzle=sw, box_cols=sw // ELEM,
-                   smem_bytes=smem_bytes(D, stages), BH=B * H, n_items=n_items,
-                   grid=min(n_items, sm_count), tiles=tiles)
+    if tiles[0].n_kv > 0xFFFF:
+        raise ValueError(f"S={S}, Skv={Skv} at D={D}: more key tiles than 65535")
+    return tiles
+
+
+@dataclass(frozen=True)
+class Launch:
+    """One launch of a call over [B, H, L, D]: the heads [b0:b1, h0:h1]
+    (a contiguous range of b*H + h), and for bf16 the plan of the tiles it
+    covers (a FwdPlan, or a flash_bwd.KernelPlan; None for f32, whose
+    kernels tile themselves)."""
+
+    b0: int
+    b1: int
+    h0: int
+    h1: int
+    plan: Optional[object]
+
+    def heads(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, H, ...] at this launch's heads (x itself when they are all)."""
+        if (self.b0, self.h0, self.b1, self.h1) == (0, 0, *x.shape[:2]):
+            return x
+        return x[self.b0:self.b1, self.h0:self.h1]
+
+    def rows(self, x: torch.Tensor, H: int) -> torch.Tensor:
+        """x [B*H, ...] at this launch's heads (a contiguous range; x itself
+        when they are all)."""
+        lo, hi = self.b0 * H + self.h0, (self.b1 - 1) * H + self.h1
+        return x if (lo, hi) == (0, x.shape[0]) else x[lo:hi]
+
+
+def bh_chunks(B: int, H: int, cap: int = MAX_BH) -> tuple:
+    """(b0, b1, h0, h1) ranges of at most `cap` heads each that cover the B*H
+    heads once, in order. Each is whole batches (every head of b0..b1-1) or
+    a head range of one batch, so each is a contiguous range of b*H + h: a
+    contiguous output or lse viewed at its first head."""
+    if B * H <= cap:
+        return ((0, B, 0, H),)
+    if H <= cap:
+        nb = cap // H
+        return tuple((b, min(b + nb, B), 0, H) for b in range(0, B, nb))
+    return tuple((b, b + 1, h, min(h + cap, H)) for b in range(B) for h in range(0, H, cap))
+
+
+def split(tiles: tuple, cap: int) -> tuple:
+    """The tiles in launch order, in groups of at most `cap`."""
+    return tuple(tiles[i:i + cap] for i in range(0, len(tiles), cap))
+
+
+@lru_cache(maxsize=256)
+def launches(B: int, H: int, S: int, Skv: int, D: int, causal: bool, sm_count: int,
+             bf16: bool = True) -> tuple:
+    """The launches of one forward call: every (head range, group of at
+    most MAX_Q_TILES q tiles) for bf16, every head range for f32."""
+    chunks = bh_chunks(B, H)
+    if not bf16:
+        return tuple(Launch(*c, None) for c in chunks)
+    groups = split(_tiles(S, Skv, D, causal), MAX_Q_TILES)
+    return tuple(Launch(b0, b1, h0, h1, _plan((b1 - b0) * (h1 - h0), D, g, sm_count))
+                 for b0, b1, h0, h1 in chunks for g in groups)
 
 
 def byte_strides(x: torch.Tensor) -> tuple:
@@ -261,8 +326,8 @@ def flash_fwd(q, k, v, causal: bool, scale: float, return_lse: bool = False):
         raise ValueError(f"k{tuple(k.shape)} does not match q{tuple(q.shape)}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
-    if S < 1 or Skv < 1 or B * H > 65535:
-        raise ValueError(f"unsupported sizes B*H={B * H}, S={S}, Skv={Skv}")
+    if S < 1 or Skv < 1:
+        raise ValueError(f"unsupported sizes S={S}, Skv={Skv}")
     if causal and Skv < S:
         raise ValueError("causal attention needs Skv >= S (queries are end-aligned)")
     if not scale > 0:
@@ -271,21 +336,22 @@ def flash_fwd(q, k, v, causal: bool, scale: float, return_lse: bool = False):
     o = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device) if return_lse else None
     lib = build.library()
-    lp = None  # the f32 kernel tiles itself
-    if q.dtype == torch.bfloat16:
-        p = plan(B, H, S, Skv, D, bool(causal), _sm_count(q.device))
-        lp = launch_plan(p, q, k, v, o)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
         _check_plan_layout(lib)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.rt_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr() if lse is not None else None,
-        B, H, S, Skv, D,
-        *byte_strides(q), *byte_strides(k), *byte_strides(v),
-        int(causal), float(scale), code, ctypes.byref(lp) if lp is not None else None, stream,
-    )
-    build.check(lib, err, "flash_fwd")
-    flash_fwd.launches += 1
+    for ln in launches(B, H, S, Skv, D, bool(causal), _sm_count(q.device), bf16):
+        qc, kc, vc, oc = (ln.heads(x) for x in (q, k, v, o))
+        lp = launch_plan(ln.plan, qc, kc, vc, oc) if bf16 else None  # the f32 kernel tiles itself
+        err = lib.rt_flash_fwd(
+            qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), oc.data_ptr(),
+            ln.rows(lse, H).data_ptr() if lse is not None else None,
+            ln.b1 - ln.b0, ln.h1 - ln.h0, S, Skv, D,
+            *byte_strides(qc), *byte_strides(kc), *byte_strides(vc),
+            int(causal), float(scale), code, ctypes.byref(lp) if lp is not None else None, stream,
+        )
+        build.check(lib, err, "flash_fwd")
+        flash_fwd.launches += 1
     return o, lse
 
 

@@ -15,6 +15,12 @@ outputs can be saved by a selective-checkpoint policy (`remat_policy=
 "attn"` in `models/gpt.py`), so the forward runs once per step. lse is
 non-differentiable on every device, as the reference stop-gradients it.
 
+On CUDA a head dim the kernels are not compiled for is zero-padded up to
+the next one (`kernels.flash_fwd.HEAD_DIMS`) and the outputs sliced back:
+zero columns change neither QKᵀ nor the first D columns of P·V, and the
+scale is fixed from the true D before the pad. Beyond the widest compiled
+head dim the op raises; it never falls back to the plain version.
+
 Shapes follow [batch, heads, seq, head_dim] throughout. Causal rows are
 END-aligned with the keys: query i sits at position i + (Skv - S), which
 covers decode over a cached prefix and chunked prefill.
@@ -84,6 +90,27 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool, scale: float):
     return dq, dk, dv
 
 
+def padded_head_dim(D: int) -> int:
+    """The narrowest head dim the flash kernels are compiled for that holds D."""
+    from ..kernels.flash_fwd import HEAD_DIMS
+
+    for d in HEAD_DIMS:
+        if d >= D:
+            return d
+    raise ValueError(f"head_dim {D} is wider than {HEAD_DIMS[-1]}, the widest head dim the "
+                     "flash kernels are compiled for")
+
+
+def _pad_d(x, Dp: int):
+    """x zero-padded along its last dim to Dp columns."""
+    return x if x.shape[-1] == Dp else torch.nn.functional.pad(x, (0, Dp - x.shape[-1]))
+
+
+def _unpad_d(x, D: int):
+    """The first D columns of x (x itself when it has D)."""
+    return x if x.shape[-1] == D else x[..., :D]
+
+
 def _flash_fwd(q, k, v, causal: bool, scale: float, return_lse: bool):
     """Forward with (B*H, 1, S) lse or None: kernel on CUDA, plain on CPU."""
     if q.device.type == "cpu":
@@ -91,8 +118,9 @@ def _flash_fwd(q, k, v, causal: bool, scale: float, return_lse: bool):
         return res if return_lse else (res, None)
     from ..kernels.flash_fwd import flash_fwd
 
-    out, lse = flash_fwd(q, k, v, causal, scale, return_lse)
-    return out, (lse.view(q.shape[0] * q.shape[1], 1, q.shape[2]) if return_lse else None)
+    D, Dp = q.shape[-1], padded_head_dim(q.shape[-1])
+    out, lse = flash_fwd(_pad_d(q, Dp), _pad_d(k, Dp), _pad_d(v, Dp), causal, scale, return_lse)
+    return _unpad_d(out, D), (lse.view(q.shape[0] * q.shape[1], 1, q.shape[2]) if return_lse else None)
 
 
 @torch.library.custom_op("ray_tpu_torch::flash_attention", mutates_args=())
@@ -119,7 +147,9 @@ def _flash_backward(ctx, g_o, _g_lse):
     else:
         from ..kernels.flash_bwd import flash_bwd
 
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, g_o, ctx.causal, ctx.scale)
+        D, Dp = q.shape[-1], padded_head_dim(q.shape[-1])
+        dq, dk, dv = (_unpad_d(g, D) for g in flash_bwd(*(_pad_d(t, Dp) for t in (q, k, v, o)), lse,
+                                                        _pad_d(g_o, Dp), ctx.causal, ctx.scale))
     return dq, dk, dv, None, None
 
 

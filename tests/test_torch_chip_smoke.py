@@ -1,7 +1,13 @@
 """`chip_smoke.py`'s build guard, checked on the CPU against ptxas and
 cuobjdump output of the bf16 flash kernels (forward, backward dQ and
 dK/dV): a build whose wgmma products ptxas serialised, that spills, or that
-lacks an instantiation, fails; a pipelined one passes."""
+lacks an instantiation, fails; a pipelined one passes. And the runtime
+phase's check that its processes ended after shutdown, which looks at this
+run's processes only."""
+
+import os
+import subprocess
+import sys
 
 import pytest
 
@@ -135,3 +141,30 @@ def test_rmsnorm_build_guard(case):
     assert len(spills) == len(fns) + 1 and spills[FN] == 0
     assert chip_smoke.missing_rmsnorm(spills) == (["rmsnorm_rows x=f32 w=f32 scalar"] if case == "missing" else [])
     assert any(spills.values()) == (case == "spill")
+
+
+def test_session_processes_are_this_runs_only(tmp_path):
+    """After shutdown the runtime phase waits for, and kills, the processes
+    of its own session only: those it saw among its descendants (still the
+    same process) and those whose environment names its session dir, not
+    another session's (a parent checkout's smoke or a test's cluster)."""
+    ours, other = str(tmp_path / "s1"), str(tmp_path / "s10")
+    sleep = [sys.executable, "-c", "import time; time.sleep(60)"]
+    procs = {name: subprocess.Popen(sleep, env={**os.environ, "RAY_TPU_SESSION_DIR": d})
+             for name, d in (("in_session", ours), ("other_session", other), ("seen", other))}
+    try:
+        known = chip_smoke._descendants(os.getpid())
+        pids = {name: p.pid for name, p in procs.items()}
+        assert set(pids.values()) <= set(known)
+        seen = {pids["seen"]: known[pids["seen"]]}
+        found = {pid for pid, _ in chip_smoke._session_processes(seen, ours)}
+        assert found == {pids["in_session"], pids["seen"]}
+        # A pid that was seen but now names another process (reused) is not ours.
+        assert {pid for pid, _ in chip_smoke._session_processes({pids["other_session"]: "0"}, "")} == set()
+        procs["in_session"].kill()
+        procs["in_session"].wait()
+        assert {pid for pid, _ in chip_smoke._session_processes(seen, ours)} == {pids["seen"]}
+    finally:
+        for p in procs.values():
+            p.kill()
+            p.wait()

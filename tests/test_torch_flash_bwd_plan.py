@@ -1,5 +1,5 @@
 """The bf16 flash backward's launch plan (`ray_tpu_torch/kernels/flash_bwd.py`
-`plan`, `tma_maps`, `launch_plan`), checked on the CPU: for the dQ kernel
+`launches`, `tma_maps`, `launch_plan`), checked on the CPU: for the dQ kernel
 and the dK/dV kernel, the stream tiles each work item and each consumer
 warpgroup reads, the work items in launch order, shared memory, the TMA
 maps, and the packed struct the kernels are handed."""
@@ -16,6 +16,13 @@ from ray_tpu_torch.kernels import flash_bwd as fb
 from ray_tpu_torch.kernels import flash_fwd as ff
 
 H100_SMS = 132
+
+
+def _plan(kind, B, H, S, Skv, D, causal, sms):
+    """The `kind` kernel's plan for a call that is one launch of it."""
+    lns = fb.launches(kind, B, H, S, Skv, D, causal, sms)
+    assert len(lns) == 1 and (lns[0].b0, lns[0].b1, lns[0].h0, lns[0].h1) == (0, B, 0, H)
+    return lns[0].plan
 SRC = Path(fb.__file__).resolve().parent / "csrc"
 SHAPES = [(1, 1), (1, 300), (127, 128), (129, 129), (200, 1000), (300, 1000), (257, 300), (64, 192),
           (1024, 1024)]
@@ -48,7 +55,7 @@ def _tiles_with_pairs(vis, rows, keys, axis_len, block, by_rows):
 def test_dq_key_tiles_match_brute_force(D, S, Skv, causal):
     """Each q tile streams the key tiles up to the last one its real rows
     see, and each warpgroup reads the prefix of them its own rows see."""
-    p = fb.plan(1, 2, S, Skv, D, causal, H100_SMS).dq
+    p = _plan("dq", 1, 2, S, Skv, D, causal, H100_SMS)
     vis = _visible(S, Skv, causal)
     bq, bk = p.block_rows, p.block_stream
     assert bq == ff.WG_ROWS * p.warpgroups and len(p.tiles) == -(-S // bq)
@@ -70,7 +77,7 @@ def test_dkv_q_tiles_match_brute_force(D, S, Skv, causal):
     """Each key tile streams the q tiles from the first with a row that sees
     one of its keys to the end, and each warpgroup reads those from the
     first that reaches its own keys (ragged tiles and Skv > S included)."""
-    p = fb.plan(1, 2, S, Skv, D, causal, H100_SMS).dkv
+    p = _plan("dkv", 1, 2, S, Skv, D, causal, H100_SMS)
     vis = _visible(S, Skv, causal)
     bkv, bq, nq = p.block_rows, p.block_stream, -(-S // p.block_stream)
     assert bkv == 2 * ff.WG_ROWS and sorted(t.r0 for t in p.tiles) == list(range(0, Skv, bkv))
@@ -93,7 +100,7 @@ def test_items_heaviest_first_and_each_once(kind, D, S, Skv, causal):
     the tiles with the most stream tiles first (late q tiles for dQ, early
     key tiles for dK/dV), so the last wave is not one heavy item."""
     B, H = 3, 5
-    p = getattr(fb.plan(B, H, S, Skv, D, causal, H100_SMS), kind)
+    p = _plan(kind, B, H, S, Skv, D, causal, H100_SMS)
     units = p.BH * p.splits
     assert p.BH == B * H and p.n_items == len(p.tiles) * units
     assert p.splits == (2 if kind == "dkv" and D == 256 else 1)
@@ -108,15 +115,15 @@ def test_items_heaviest_first_and_each_once(kind, D, S, Skv, causal):
 
 @pytest.mark.parametrize("B,H,S,grid", [(13, 20, 1024, 132), (1, 1, 100, 1), (1, 2, 300, 6)])
 def test_persistent_grid(B, H, S, grid):
-    p = fb.plan(B, H, S, S, 64, True, H100_SMS)
-    assert p.dq.grid == min(p.dq.n_items, H100_SMS) == grid
-    assert p.dkv.grid == min(p.dkv.n_items, H100_SMS)
+    dq, dkv = (_plan(kind, B, H, S, S, 64, True, H100_SMS) for kind in ("dq", "dkv"))
+    assert dq.grid == min(dq.n_items, H100_SMS) == grid
+    assert dkv.grid == min(dkv.n_items, H100_SMS)
 
 
 @pytest.mark.parametrize("kind", ["dq", "dkv"])
 @pytest.mark.parametrize("D", ff.HEAD_DIMS)
 def test_shared_memory_fits(kind, D):
-    p = getattr(fb.plan(2, 4, 512, 512, D, True, H100_SMS), kind)
+    p = _plan(kind, 2, 4, 512, 512, D, True, H100_SMS)
     assert p.smem_bytes == fb.smem_bytes(kind, D, p.stages) <= ff.SMEM_LIMIT == 232_448
     assert 2 <= p.stages <= fb.MAX_STAGES
     assert p.stages == fb.MAX_STAGES or fb.smem_bytes(kind, D, p.stages + 1) > ff.SMEM_LIMIT
@@ -146,18 +153,18 @@ def test_tma_maps_read_strided_do_in_place(D):
     assert not do.is_contiguous() and ff._kernel_view(do) is do
     q, o = torch.zeros(B, H, S, D, dtype=torch.bfloat16), torch.zeros(B, H, S, D, dtype=torch.bfloat16)
     k = v = torch.zeros(B, H, Skv, D, dtype=torch.bfloat16)
-    p = fb.plan(B, H, S, Skv, D, True, H100_SMS)
-    dq_maps = fb.tma_maps(p.dq, q, do, o, k, v, q)
-    dkv_maps = fb.tma_maps(p.dkv, q, do, k, v, k, v)
+    dq, dkv = (_plan(kind, B, H, S, Skv, D, True, H100_SMS) for kind in ("dq", "dkv"))
+    dq_maps = fb.tma_maps(dq, q, do, o, k, v, q)
+    dkv_maps = fb.tma_maps(dkv, q, do, k, v, k, v)
     seq_major = (H * D * 2, D * 2, S * H * D * 2)
     assert dq_maps[1].strides == dkv_maps[1].strides == seq_major
     assert dq_maps[0].strides == (D * 2, S * D * 2, H * S * D * 2)
-    assert [m.box[1] for m in dq_maps] == [p.dq.block_rows] * 3 + [p.dq.block_stream] * 2 + [64]
-    assert [m.box[1] for m in dkv_maps] == [p.dkv.block_stream] * 2 + [p.dkv.block_rows] * 2 + [64] * 2
+    assert [m.box[1] for m in dq_maps] == [dq.block_rows] * 3 + [dq.block_stream] * 2 + [64]
+    assert [m.box[1] for m in dkv_maps] == [dkv.block_stream] * 2 + [dkv.block_rows] * 2 + [64] * 2
     assert [m.dims[1] for m in dq_maps] == [S, S, S, Skv, Skv, S]
     assert [m.dims[1] for m in dkv_maps] == [S, S, Skv, Skv, Skv, Skv]
     for m in dq_maps + dkv_maps:
-        assert m.box[0] * 2 == p.dq.swizzle == p.dkv.swizzle == ff.swizzle_bytes(D) and D % m.box[0] == 0
+        assert m.box[0] * 2 == dq.swizzle == dkv.swizzle == ff.swizzle_bytes(D) and D % m.box[0] == 0
         assert m.dims[0] == D and m.dims[2:] == (H, B) and all(s % 16 == 0 for s in m.strides)
 
 
@@ -209,7 +216,7 @@ def test_launch_plan_packs_what_the_kernel_runs_with(kind, D):
     q = torch.zeros(B, H, S, D, dtype=torch.bfloat16)
     do = torch.zeros(B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
     k = v = torch.zeros(B, H, Skv, D, dtype=torch.bfloat16)
-    p = getattr(fb.plan(B, H, S, Skv, D, True, H100_SMS), kind)
+    p = _plan(kind, B, H, S, Skv, D, True, H100_SMS)
     tensors = (q, do, q, k, v, q) if kind == "dq" else (q, do, k, v, k, v)
     lp = fb.launch_plan(p, *tensors)
     assert (lp.block_rows, lp.block_stream, lp.swizzle, lp.stages, lp.smem_bytes, lp.grid, lp.n_items, lp.BH,
@@ -223,14 +230,17 @@ def test_launch_plan_packs_what_the_kernel_runs_with(kind, D):
     assert all(slot.hi == 0 for slot in lp.tiles[len(p.tiles):])
 
 
-def test_plan_refuses_unknown_head_dim():
+@pytest.mark.parametrize("kind", ["dq", "dkv"])
+def test_plan_refuses_unknown_head_dim(kind):
     with pytest.raises(ValueError, match="head_dim"):
-        fb.plan(1, 1, 8, 8, 96, True, H100_SMS)
+        fb.launches(kind, 1, 1, 8, 8, 96, True, H100_SMS)
 
 
 def test_plan_refuses_more_tiles_than_the_kernel_table():
+    """One launch holds at most the kernel's table of outer tiles; a call
+    past it is split into launches that each stay within it."""
     S = 2 * ff.WG_ROWS * fb.MAX_TILES  # 128 q tiles (dQ) and 128 key tiles (dK/dV) per head
-    p = fb.plan(1, 1, S, S, 64, True, H100_SMS)
-    assert len(p.dq.tiles) == len(p.dkv.tiles) == fb.MAX_TILES
-    with pytest.raises(ValueError, match="tiles per head"):
-        fb.plan(1, 1, S + 1, S + 1, 64, True, H100_SMS)
+    for kind in ("dq", "dkv"):
+        assert len(_plan(kind, 1, 1, S, S, 64, True, H100_SMS).tiles) == fb.MAX_TILES
+        lns = fb.launches(kind, 1, 1, S + 1, S + 1, 64, True, H100_SMS)
+        assert [len(ln.plan.tiles) for ln in lns] == [fb.MAX_TILES, 1]

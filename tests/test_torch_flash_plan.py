@@ -1,5 +1,5 @@
 """The bf16 flash forward's launch plan (`ray_tpu_torch/kernels/flash_fwd.py`
-`plan`, `tma_maps`, `launch_plan`, `_kernel_view`), checked on the CPU: the
+`launches`, `tma_maps`, `launch_plan`, `_kernel_view`), checked on the CPU: the
 stages, shared memory, grid, q tiles in launch order with their key-tile
 counts, and TMA maps that the kernel is handed and runs with as given."""
 
@@ -14,9 +14,16 @@ from ray_tpu_torch.kernels import flash_fwd as ff
 H100_SMS = 132
 
 
+def _plan(B, H, S, Skv, D, causal, sms):
+    """The plan of a call that is one launch."""
+    lns = ff.launches(B, H, S, Skv, D, causal, sms)
+    assert len(lns) == 1 and (lns[0].b0, lns[0].b1, lns[0].h0, lns[0].h1) == (0, B, 0, H)
+    return lns[0].plan
+
+
 @pytest.mark.parametrize("D", ff.HEAD_DIMS)
 def test_shared_memory_fits(D):
-    p = ff.plan(4, 32, 512, 512, D, True, H100_SMS)
+    p = _plan(4, 32, 512, 512, D, True, H100_SMS)
     assert p.smem_bytes <= ff.SMEM_LIMIT == 232_448
     assert 2 <= p.stages <= ff.MAX_STAGES
     assert p.smem_bytes == ff.smem_bytes(D, p.stages)
@@ -33,7 +40,7 @@ def test_shared_memory_fits(D):
 
 @pytest.mark.parametrize("D", ff.HEAD_DIMS)
 def test_tma_box_within_the_swizzle(D):
-    p = ff.plan(2, 4, 300, 300, D, False, H100_SMS)
+    p = _plan(2, 4, 300, 300, D, False, H100_SMS)
     x = torch.zeros(2, 4, 300, D, dtype=torch.bfloat16)
     maps = ff.tma_maps(p, x, x, x, x)
     for m, rows in zip(maps, (p.block_q, p.block_k, p.block_k, 64)):
@@ -61,7 +68,7 @@ def test_strides_and_bases_16_byte_aligned(D, layout):
     x = ff._kernel_view(_layouts(D)[layout])
     assert x.data_ptr() % 16 == 0
     assert all(s % 16 == 0 for s in ff.byte_strides(x))
-    p = ff.plan(2, 4, 96, 96, D, True, H100_SMS)
+    p = _plan(2, 4, 96, 96, D, True, H100_SMS)
     o = torch.empty(2, 4, 96, D, dtype=torch.bfloat16)
     assert all(s % 16 == 0 for m in ff.tma_maps(p, x, x, x, o) for s in m.strides)
 
@@ -74,7 +81,7 @@ def test_generate_layout_read_in_place():
     v = qkv[:, :, 2].transpose(1, 2)
     assert not v.is_contiguous()
     assert ff._kernel_view(v) is v
-    p = ff.plan(B, H, S, S, D, True, H100_SMS)
+    p = _plan(B, H, S, S, D, True, H100_SMS)
     mv = ff.tma_maps(p, v, v, v, v)[2]
     # (seq, head, batch) byte strides: a row of the projection, one head, one batch
     assert mv.strides == (3 * H * D * 2, D * 2, S * 3 * H * D * 2)
@@ -118,7 +125,7 @@ def test_q_tiles_end_at_the_sequence_end(S, bq):
 def test_kv_tile_counts_match_brute_force(D, S, Skv, causal):
     """The key tiles the producer streams for each q tile and each consumer
     warpgroup reads, against a brute-force count of the pairs they see."""
-    p = ff.plan(1, 2, S, Skv, D, causal, H100_SMS)
+    p = _plan(1, 2, S, Skv, D, causal, H100_SMS)
     assert len(p.tiles) == -(-S // p.block_q) and p.n_items == 2 * len(p.tiles)
     for t in p.tiles:
         assert t.n_kv == _brute_force_kv_tiles(t.q0, t.q0 + p.block_q, S, Skv, causal, p.block_k)
@@ -131,7 +138,7 @@ def test_kv_tile_counts_match_brute_force(D, S, Skv, causal):
 @pytest.mark.parametrize("S,Skv,causal", [(512, 512, True), (300, 1000, True), (257, 257, False)])
 def test_items_heaviest_first_and_each_once(S, Skv, causal):
     B, H = 3, 5
-    p = ff.plan(B, H, S, Skv, 128, causal, H100_SMS)
+    p = _plan(B, H, S, Skv, 128, causal, H100_SMS)
     # item i is q tile i // BH of head i % BH
     order = [(p.tiles[i // p.BH].q0, i % p.BH) for i in range(p.n_items)]
     assert p.BH == B * H and len(order) == p.n_items == len(p.tiles) * B * H
@@ -144,20 +151,22 @@ def test_items_heaviest_first_and_each_once(S, Skv, causal):
 @pytest.mark.parametrize("B,H,S,sms,grid", [(4, 32, 512, 132, 132), (1, 1, 100, 132, 1),
                                             (1, 2, 300, 132, 6), (13, 20, 1024, 132, 132)])
 def test_persistent_grid(B, H, S, sms, grid):
-    p = ff.plan(B, H, S, S, 128, True, sms)
+    p = _plan(B, H, S, S, 128, True, sms)
     assert p.grid == grid == min(p.n_items, sms)
 
 
 def test_plan_refuses_unknown_head_dim():
     with pytest.raises(ValueError, match="head_dim"):
-        ff.plan(1, 1, 8, 8, 96, True, H100_SMS)
+        ff.launches(1, 1, 8, 8, 96, True, H100_SMS)
 
 
 def test_plan_refuses_more_q_tiles_than_the_kernel_table():
+    """One launch holds at most the kernel's table of q tiles; a call past
+    it is split into launches that each stay within it."""
     S = ff.block_q(128) * ff.MAX_Q_TILES
-    assert len(ff.plan(1, 1, S, S, 128, True, H100_SMS).tiles) == ff.MAX_Q_TILES
-    with pytest.raises(ValueError, match="q tiles"):
-        ff.plan(1, 1, S + 1, S + 1, 128, True, H100_SMS)
+    assert len(_plan(1, 1, S, S, 128, True, H100_SMS).tiles) == ff.MAX_Q_TILES
+    lns = ff.launches(1, 1, S + 1, S + 1, 128, True, H100_SMS)
+    assert [len(ln.plan.tiles) for ln in lns] == [ff.MAX_Q_TILES, 1]
 
 
 @pytest.mark.parametrize("D", ff.HEAD_DIMS)
@@ -168,7 +177,7 @@ def test_launch_plan_packs_what_the_kernel_runs_with(D):
     q = torch.zeros(B, H, S, D, dtype=torch.bfloat16)
     kv = torch.zeros(B, Skv, 2, H, D, dtype=torch.bfloat16)
     k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
-    p = ff.plan(B, H, S, Skv, D, True, H100_SMS)
+    p = _plan(B, H, S, Skv, D, True, H100_SMS)
     lp = ff.launch_plan(p, q, k, v, q)
     # 8 ints, 4 x (4 + 3 u64 + 2 u32), MAX_Q_TILES x (i32 + 4 u16), no padding
     assert ctypes.sizeof(lp) == 8 * 4 + 4 * 64 + ff.MAX_Q_TILES * 12

@@ -16,6 +16,8 @@ import torch
 
 from ray_tpu_torch.kernels import build
 from ray_tpu_torch.kernels.flash_bwd import flash_bwd, flash_bwd_dkv, flash_bwd_dq
+from ray_tpu_torch.kernels import flash_bwd as fb
+from ray_tpu_torch.kernels import flash_fwd as ff
 from ray_tpu_torch.kernels.flash_fwd import flash_fwd
 from ray_tpu_torch.kernels.rmsnorm import rmsnorm_fwd
 from ray_tpu_torch.models import gpt as tg
@@ -23,6 +25,7 @@ from ray_tpu_torch.ops import (
     flash_attention,
     flash_attention_bwd_plain,
     flash_attention_plain,
+    flash_attention_with_stats,
     rmsnorm,
     rmsnorm_plain,
 )
@@ -342,9 +345,9 @@ def test_flash_bwd_pair_replays_in_a_cuda_graph(cuda):
 
 
 def _tiny_llama(**kw):
-    # d_head 32: the kernels take head dims 32..256.
-    return tg.GPTConfig(vocab_size=64, n_layers=2, d_model=64, n_heads=2, d_head=32, d_mlp=128,
-                        max_seq=64, norm="rmsnorm", activation="swiglu", pos="rotary", rotary_dim=32,
+    # d_head 16, as the CPU parity configs: the op pads it to the kernels' 32.
+    return tg.GPTConfig(vocab_size=64, n_layers=2, d_model=64, n_heads=4, d_head=16, d_mlp=128,
+                        max_seq=64, norm="rmsnorm", activation="swiglu", pos="rotary", rotary_dim=16,
                         tie_embeddings=False, dtype=torch.float32, **kw)
 
 
@@ -389,6 +392,85 @@ def test_attn_remat_runs_flash_forward_once_per_layer(cuda):
     L = cfg.n_layers
     assert (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches) == (L, L, L)
     assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+
+
+def _op_matches_plain(q, k, v, causal, tol):
+    """The attention op and its gradient (the custom op, so the kernels)
+    against the plain versions: the forward (o, lse) against the plain
+    forward, the gradient against the plain backward of that same forward
+    (the kernels' o and lse, as `_assert_bwd_matches_plain` holds them)."""
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    scale = q.shape[-1] ** -0.5
+    out, lse = flash_attention_with_stats(q, k, v, causal)
+    do = _randn(out.shape, out.dtype, out.device, 77)
+    out.backward(do)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_attention_plain(q.detach(), k.detach(), v.detach(), causal, return_lse=True)
+    torch.testing.assert_close(out.detach().float(), ref.float(), atol=tol, rtol=tol, msg="o")
+    torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol, msg="lse")
+    want = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), out.detach(), lse, do, causal, scale)
+    for name, t, w in zip(("dq", "dk", "dv"), (q, k, v), want):
+        assert t.grad.shape == w.shape and t.grad.dtype == w.dtype, name
+        torch.testing.assert_close(t.grad.float(), w.float(), atol=tol, rtol=tol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [16, 80, 96])
+@pytest.mark.parametrize("S,Skv,causal", [(200, 200, True), (129, 129, False), (64, 192, True)])
+def test_flash_op_pads_head_dims(cuda, dtype, D, S, Skv, causal):
+    """Head dims the kernels are not compiled for go through the kernels,
+    zero-padded to the next compiled one (16 -> 32, 80 and 96 -> 128)."""
+    before = (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    _op_matches_plain(_randn((2, 3, S, D), dtype, cuda, 20), _randn((2, 3, Skv, D), dtype, cuda, 21),
+                      _randn((2, 3, Skv, D), dtype, cuda, 22), causal, TOL[dtype])
+    after = (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    assert all(b == a + 1 for a, b in zip(before, after)), (before, after)
+
+
+def test_flash_op_refuses_head_dims_past_the_widest():
+    from ray_tpu_torch.ops.attention import padded_head_dim
+
+    assert [padded_head_dim(d) for d in (1, 16, 32, 33, 80, 96, 128, 200, 256)] == \
+        [32, 32, 32, 64, 128, 128, 128, 256, 256]
+    with pytest.raises(ValueError, match="257 is wider than 256"):
+        padded_head_dim(257)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,S,fwd_launches,bwd_launches", [
+    (128, ff.block_q(128) * ff.MAX_Q_TILES + 1, 2, None),    # forward: just past its q-tile table
+    (64, 2 * ff.WG_ROWS * fb.MAX_TILES + 1, 1, 2),           # backward: past dQ's and dK/dV's tables
+])
+def test_flash_splits_sequences_past_the_tile_tables(cuda, D, S, fwd_launches, bwd_launches):
+    """A bf16 sequence longer than one launch's tile table runs as several
+    launches of the same kernel, each over its own tiles."""
+    q, k, v = (_randn((1, 1, S, D), torch.bfloat16, cuda, 30 + i) for i in range(3))
+    before = (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    if bwd_launches is None:
+        with torch.no_grad():
+            out = flash_attention(q, k, v, True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), flash_attention_plain(q, k, v, True).float(),
+                                   atol=2e-2, rtol=2e-2)
+        assert flash_fwd.launches - before[0] == fwd_launches
+        return
+    _op_matches_plain(q, k, v, True, 2e-2)
+    after = (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    assert tuple(b - a for a, b in zip(before, after)) == (fwd_launches, bwd_launches, bwd_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,n", [(65535, 1), (65536, 2)])
+def test_flash_splits_heads_past_the_grid_limit(cuda, dtype, H, n):
+    """B*H = 65536 heads: two launches of each kernel, over heads [0, 65535)
+    and [65535, 65536); at 65535, the most one launch takes, one."""
+    B, S, D = 1, 40, 32
+    before = (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    _op_matches_plain(*(_randn((B, H, S, D), dtype, cuda, 40 + i) for i in range(3)), True, TOL[dtype])
+    after = (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    assert tuple(b - a for a, b in zip(before, after)) == (n, n, n)
 
 
 def test_wrappers_refuse_cpu_tensors():
