@@ -21,8 +21,10 @@ Phases:
               path's rows (D=4096: N = 1, 4, 8, 64, 512, 2048, 16384 bf16,
               256 f32) beside a one-element kernel's launch floor; the
               attention op (forward and gradient) at a head dim the
-              kernels pad (80 -> 128) and at a sequence split over several
-              launches of each kernel (S=32769, D=128)
+              kernels pad (80 -> 128), at one above 256 (288 -> 320, the
+              wide-head route) and at a sequence split over several
+              launches of each kernel (S=32769, D=128); the wide-head route
+              of the three flash kernels timed at B=1 H=8 S=1024 D=512
   4. parity   llama-7b widths, 2 layers, f32: make_generate and
               InferenceEngine on the card vs make_generate on the CPU
   5. train_parity  llama-7b widths, 2 layers, f32, remat "attn": loss and
@@ -39,6 +41,14 @@ Phases:
               an actor with num_gpus=1 that builds llama-7b bf16 (seed 0) and
               generates the generate phase's tokens, put/get of 256 MiB, a
               compiled-DAG round trip through a GPU actor
+ 10. serve    llama-7b behind LLMDeployment on the port's Serve (cluster
+              mode, HTTP proxy): one num_gpus=1 replica returns the engine
+              phase's lone-request tokens exactly (handle and HTTP) and
+              serves its 8 requests as a streamed burst; a prefill and a
+              decode replica (num_gpus=0.5 each) return colocated tokens
+              exactly at the parity model (f32, 2 layers) and import every
+              full block at full width (bf16); the card's memory is
+              released after shutdown
 
 Prints progress lines, one `{"kernels": [...]}` line, the card line, and
 last `{"ok": true, "device": {...}}`. Exits non-zero on any failure and
@@ -48,6 +58,7 @@ without a CUDA card. `--phases` runs a subset (no final ok line then).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -60,7 +71,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 PHASES = ("device", "build", "kernels", "parity", "train_parity", "train", "generate", "engine",
-          "runtime")
+          "runtime", "serve")
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, SXM
 H100_F32_FLOPS = 67e12     # CUDA-core f32 peak, SXM
 H100_BYTES_PER_S = 3.35e12
@@ -394,6 +405,7 @@ def phase_kernels(results: dict) -> None:
 
     _time_rmsnorm(results, randn)
     _time_flash_train_shape(results, randn)
+    _time_flash_wide(results, randn)
     for r in results.values():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"{r['name']} at {r['shape']}: kernel {r['ms']:.4f} ms (eager loop {r['eager_ms']:.4f}), "
@@ -544,7 +556,8 @@ def _check_flash_op_repairs(randn) -> None:
     """The attention op (forward and gradient, so the three flash kernels)
     against the plain versions at shapes one launch of the kernels could
     not take: a head dim the kernels are not compiled for (zero-padded to
-    the next), and a sequence past every tile table (each kernel split into
+    the next), one above 256 (padded to 320, the wide-head route), and a
+    sequence past every tile table (each kernel split into
     several launches; the plain side holds several 4 GB f32 matrices)."""
     import torch
 
@@ -554,6 +567,7 @@ def _check_flash_op_repairs(randn) -> None:
                                              flash_attention_with_stats)
 
     for tag, (B, H, S, D), want in (("padded D=80", (2, 3, 200, 80), (1, 1, 1)),
+                                    ("wide D=288", (2, 3, 200, 288), (1, 1, 1)),
                                     ("split S=32769 D=128", (1, 1, 32769, 128), (2, 3, 3))):
         q, k, v = (randn(B, H, S, D, dtype=torch.bfloat16).requires_grad_(True) for _ in range(3))
         do = randn(B, H, S, D, dtype=torch.bfloat16)
@@ -661,6 +675,76 @@ def _time_flash_train_shape(results: dict, randn) -> None:
         train_shape=f"B={B} H={H} S={S} D={D} bf16 causal, lse", train_shape_ms=t["ms"],
         train_shape_bound_ms=max(ops_s, bytes_s) * 1e3, train_shape_bound_by=bound_by,
         train_shape_plain_ms=t["plain_ms"], train_shape_library_ms=t["library_ms"])
+
+
+# The wide-head route's timed shape (no configuration of the repository has
+# a head dim above 256): bf16, causal.
+WIDE_ATTN = (1, 8, 1024, 512)
+
+
+def _time_flash_wide(results: dict, randn) -> None:
+    """The wide-head route (D > 256) of the three flash kernels at WIDE_ATTN:
+    forward with lse, dQ with Delta and dK/dV, each against its plain version
+    and timed beside its bound, the plain version and the library call; a
+    `wide` entry under each of the three kernels' rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.kernels.flash_bwd import flash_bwd_dkv, flash_bwd_dq
+    from ray_tpu_torch.kernels.flash_fwd import flash_fwd
+    from ray_tpu_torch.ops.attention import flash_attention_bwd_plain, flash_attention_plain
+
+    B, H, S, D = WIDE_ATTN
+    scale = D ** -0.5
+    shape = f"B={B} H={H} S={S} D={D} bf16 causal"
+    q, k, v, do = (randn(B, H, S, D, dtype=torch.bfloat16) for _ in range(4))
+    before = read_launches()
+    o, lse = flash_fwd(q, k, v, True, scale, True)
+    ref, ref_lse = flash_attention_plain(q, k, v, True, scale, return_lse=True)
+    fwd_err = max(compare(f"flash wide {shape} out", o, ref, TOL["bf16"]),
+                  compare(f"flash wide {shape} lse", lse.reshape(ref_lse.shape), ref_lse, TOL["bf16"]))
+    del ref, ref_lse
+    errs = _check_bwd_case(f"wide {shape}", q, k, v, do, True, TOL["bf16"])
+    n = {k_: v_ - before[k_] for k_, v_ in read_launches().items()}
+    if (n["flash_fwd"], n["flash_bwd_dq"], n["flash_bwd_dkv"]) != (2, 1, 1):  # the check's own forward too
+        raise AssertionError(f"flash wide: launches {n}, want one per call")
+    delta = flash_bwd_dq(q, k, v, o, do, lse, True, scale)[1]
+    pairs = B * H * S * (S + 1) // 2
+    tile = B * H * S * D * 2
+    rows = B * H * S * 4
+    library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
+    try:
+        library()
+    except RuntimeError as e:  # a yardstick only: the port never calls it
+        log(f"flash wide: scaled_dot_product_attention refuses {shape}: {e}")
+        library = None
+    library_ms = cuda_ms(library)[0] if library is not None else None
+    library_bwd_ms = None
+    if library is not None:
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        library_bwd_ms = profiled_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True))
+    bwd_plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, True, scale), iters=3)[0]
+    for name, fn, flops, nbytes, err, plain_ms, lib_ms in (
+        ("flash_fwd", lambda: flash_fwd(q, k, v, True, scale, True), 4 * D * pairs, 4 * tile + rows, fwd_err,
+         cuda_ms(lambda: flash_attention_plain(q, k, v, True, scale, return_lse=True), iters=3)[0], library_ms),
+        ("flash_bwd_dq", lambda: flash_bwd_dq(q, k, v, o, do, lse, True, scale), 6 * D * pairs,
+         6 * tile + 2 * rows, max(errs[:2]), bwd_plain_ms, library_bwd_ms),
+        ("flash_bwd_dkv", lambda: flash_bwd_dkv(q, k, v, do, lse, delta, True, scale), 8 * D * pairs,
+         6 * tile + 2 * rows, max(errs[2:]), bwd_plain_ms, library_bwd_ms),
+    ):
+        ops_s, bytes_s = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+        ms, eager_ms = cuda_ms(fn, iters=5)
+        results[name]["wide"] = dict(
+            route="cuda", source="ray_tpu_torch/kernels/csrc/flash_wide.cu", shape=shape, ms=ms,
+            eager_ms=eager_ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+            bound_ms=max(ops_s, bytes_s) * 1e3, bound_by="operations" if ops_s >= bytes_s else "bytes")
+        w = results[name]["wide"]
+        lib = "null" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"{name} wide-head route at {shape}: kernel {ms:.4f} ms, bound {w['bound_ms']:.4f} ms "
+            f"({w['bound_by']}), plain {plain_ms:.4f} ms, library {lib}")
+    del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------- parity
@@ -971,7 +1055,30 @@ def _profile(label: str, fn):
     return len(spans)
 
 
-def phase_engine(cfg, params, launches: dict) -> None:
+# The engine phase's options; the serve phase's colocated replica runs the same.
+ENGINE_OPTIONS = dict(num_blocks=512, block_size=16, max_num_seqs=8)
+ENGINE_MAX_TOKENS = 32
+LONE_REQUESTS = 4  # prompts also served alone (and the first once more), for the serve phase
+
+
+def _lone_runs(engine, prompts: list, n: int) -> list:
+    """(tokens, TTFT s) of each prompt served alone by an otherwise idle
+    engine, one after another, and then the first prompt once more (a
+    prefix-cache hit, as the serve phase's HTTP request is)."""
+    out = []
+    for p in prompts + prompts[:1]:
+        rid = engine.submit(p, n)
+        seq = engine.scheduler.get(rid)
+        _drain(engine)
+        out.append((list(engine.stream(rid)), seq.first_token_t - seq.arrival_t))
+    return out
+
+
+def phase_engine(cfg, params, launches: dict) -> dict:
+    """The continuous-batching engine on llama-7b; returns what the serve
+    phase holds its replicas to: the requests and their batched tokens, the
+    tokens/s, and the tokens of LONE_REQUESTS prompts each served alone by a
+    fresh engine (the replica's state on its first requests)."""
     import torch
 
     from ray_tpu_torch.kernels.flash_fwd import flash_fwd
@@ -987,9 +1094,8 @@ def phase_engine(cfg, params, launches: dict) -> None:
     prompts = [rand(n) for n in (64, 128, 192, 384, 448, 512)]
     first_shared = shared + rand(32)
     late_shared = shared + rand(96)      # arrives once the prefix is cached
-    max_tokens = 32
-    engine = InferenceEngine(
-        cfg, params, EngineOptions(num_blocks=512, block_size=16, max_num_seqs=8), device="cuda")
+    max_tokens = ENGINE_MAX_TOKENS
+    engine = InferenceEngine(cfg, params, EngineOptions(**ENGINE_OPTIONS), device="cuda")
     forwards = {"n": 0}  # paged forwards (prefill chunks, decode and verify steps)
     _finite_guard(engine, forwards)
     reset_launches()
@@ -1059,6 +1165,22 @@ def phase_engine(cfg, params, launches: dict) -> None:
     if nf != 0 or n_fwd <= 0 or nr != (2 * L + 1) * n_fwd:
         raise AssertionError(f"engine launch counts flash={nf} (want 0), rmsnorm={nr} "
                              f"(want {(2 * L + 1) * n_fwd} for {n_fwd} forwards)")
+
+    del engine, spec
+    torch.cuda.empty_cache()
+    lone_engine = InferenceEngine(cfg, params, EngineOptions(**ENGINE_OPTIONS), device="cuda")
+    _finite_guard(lone_engine)
+    lone = _lone_runs(lone_engine, prompts[:LONE_REQUESTS], max_tokens)
+    del lone_engine
+    torch.cuda.empty_cache()
+    log(f"engine: {LONE_REQUESTS} prompts ({[len(p) for p in prompts[:LONE_REQUESTS]]} tokens) served alone by a "
+        f"fresh engine, then the first again: TTFT {[round(t * 1e3, 1) for _, t in lone]} ms; the repeat "
+        f"{'equals' if lone[-1][0] == lone[0][0] else 'differs from'} the first")
+    if any(len(t) != max_tokens for t, _ in lone):
+        raise AssertionError(f"engine: lone requests unfinished: {[len(t) for t, _ in lone]}")
+    requests = prompts + [first_shared, late_shared]
+    return {"requests": requests, "tokens": outs, "max_tokens": max_tokens, "tokens_per_s": total / wall,
+            "lone_prompts": prompts[:LONE_REQUESTS], "lone_tokens": [t for t, _ in lone]}
 
 
 # ---------------------------------------------------------------- runtime
@@ -1291,20 +1413,356 @@ def phase_runtime(generated: dict, launches: dict) -> None:
             f"p50 {lat[len(lat) // 2] * 1e6:.1f} us, p90 {lat[int(len(lat) * 0.9)] * 1e6:.1f} us over "
             f"{len(lat)}")
     finally:
-        known = _descendants(controller)
-        rt.shutdown()
-        deadline = time.monotonic() + 30
-        while _session_processes(known, session_dir) and time.monotonic() < deadline:
-            time.sleep(0.5)
-        left = [(pid, f"parent {(_proc_stat(pid) or ('gone',))[0]}", cmd)
-                for pid, cmd in _session_processes(known, session_dir)]
-        for pid, _, _ in left:
-            try:
-                os.kill(pid, 9)
-            except OSError:
-                pass
+        left = _end_session(controller, session_dir)
     if left:
         raise AssertionError(f"runtime: processes outlived shutdown (killed): {left}")
+
+
+def _end_session(controller: int, session_dir: str, before_shutdown=None) -> list:
+    """Shut the runtime down (after `before_shutdown`, e.g. Serve's), wait
+    up to 30 s for this session's processes to end, kill any left and
+    return them as (pid, parent, command)."""
+    import ray_tpu_torch as rt
+
+    known = _descendants(controller)
+    try:
+        if before_shutdown is not None:
+            before_shutdown()
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while _session_processes(known, session_dir) and time.monotonic() < deadline:
+        time.sleep(0.5)
+    left = [(pid, f"parent {(_proc_stat(pid) or ('gone',))[0]}", cmd)
+            for pid, cmd in _session_processes(known, session_dir)]
+    for pid, _, _ in left:
+        try:
+            os.kill(pid, 9)
+        except OSError:
+            pass
+    return left
+
+# ------------------------------------------------------------------ serve
+SERVE_BOOT_TIMEOUT_S = 600.0   # a replica's boot: GPU worker, CUDA, kernel library, llama-7b
+SERVE_REQUEST_TIMEOUT_S = 300.0
+MEMORY_RELEASE_SLACK = 1 << 30  # bytes of the card the driver may still miss after shutdown
+
+
+@dataclasses.dataclass
+class ServeSpec:
+    """What the serve phase deploys: the model, its overrides at full width
+    (`full`) and for the f32 parity pair (`parity`), the engine options of
+    each, the runtime's init arguments, and where the replicas compute
+    (None: the card). The CPU rehearsal (tests/test_torch_chip_smoke.py)
+    passes a tiny model on the CPU."""
+
+    model: str = "llama-7b"
+    full: dict = dataclasses.field(default_factory=lambda: {"dtype": "bfloat16"})
+    parity: dict = dataclasses.field(default_factory=lambda: {"n_layers": 2, "dtype": "float32"})
+    engine_options: dict = dataclasses.field(default_factory=lambda: dict(ENGINE_OPTIONS))
+    parity_options: dict = dataclasses.field(
+        default_factory=lambda: {"num_blocks": 64, "block_size": 16, "max_num_seqs": 8})
+    init: dict = dataclasses.field(default_factory=lambda: {"log_to_driver": False})
+    device: str | None = None
+
+
+def _smoke_replica_class():
+    """`LLMDeployment`'s replica class with the smoke's instruments added:
+    every paged forward of its engine counted and checked finite, each KV
+    import timed, and the kernel launch counts of its process read out.
+    Serving runs `_LLMReplica`'s own methods."""
+    from ray_tpu_torch.serve.engine.deployment import _LLMReplica
+
+    class SmokeLLMReplica(_LLMReplica):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.forwards = {"n": 0}
+            self.import_ms = []
+            _finite_guard(self.engine, self.forwards)
+            real_import = self.engine.import_blocks
+
+            def timed_import(desc):
+                t0 = time.perf_counter()
+                try:
+                    return real_import(desc)
+                finally:
+                    self.import_ms.append((time.perf_counter() - t0) * 1e3)
+
+            self.engine.import_blocks = timed_import
+
+        def smoke_counts(self, reset: bool = False) -> dict:
+            out = {"launches": read_launches(), "forwards": self.forwards["n"], "import_ms": list(self.import_ms)}
+            if reset:
+                reset_launches()
+                self.forwards["n"] = 0
+                self.import_ms.clear()
+            return out
+
+    return SmokeLLMReplica
+
+
+def _llm_app(replica_cls, model: str, overrides: dict, engine_options: dict, device, **options):
+    """`LLMDeployment.options(**options)` serving `replica_cls`, bound."""
+    from ray_tpu_torch.serve import LLMDeployment
+    from ray_tpu_torch.serve.deployment import Deployment
+
+    dep = LLMDeployment.options(**options)
+    return Deployment(replica_cls, dep.name, dep.opts).bind(
+        model=model, model_overrides=overrides, engine_options={**engine_options, "seed": 0}, device=device)
+
+
+def _replicas(app: str) -> list:
+    """(replica actor, role) of the app's LLMDeployment, as its router sees them."""
+    from ray_tpu_torch.serve.handle import Router
+
+    router = Router.get_or_create(app, "LLMDeployment")
+    router._refresh(force=True)
+    with router._lock:
+        return list(zip(router._info["replicas"], router._replica_roles()))
+
+
+def _replica_call(replica, method: str, *args):
+    import ray_tpu_torch as rt
+
+    return rt.get(replica.handle_request.remote(method, args, {}), timeout=SERVE_REQUEST_TIMEOUT_S)
+
+
+def _first_difference(got: list, want: list) -> str:
+    i = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+    return f"first differing position {i}: {got[i:i + 4]} vs {want[i:i + 4]} ({len(got)} vs {len(want)} tokens)"
+
+
+def _stream_burst(handle, prompts: list, n: int) -> list:
+    """Every prompt streamed through the handle at once: (tokens, TTFT s,
+    total s) each, timed at the caller."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(p):
+        t0, first, toks = time.perf_counter(), None, []
+        for tok in handle.options(stream=True).generate_stream.remote(p, n):
+            if first is None:
+                first = time.perf_counter() - t0
+            toks.append(tok)
+        return toks, first, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(prompts)) as pool:
+        futures = [pool.submit(one, p) for p in prompts]
+        return [f.result(timeout=SERVE_REQUEST_TIMEOUT_S) for f in futures]
+
+
+def _check_replica_launches(where: str, counts: dict, n_layers: int, on_card: bool) -> None:
+    """A replica's paged forwards run the RMSNorm kernel at every norm and
+    attend in plain torch (no flash launch)."""
+    nf, nr, fwd = counts["launches"]["flash_fwd"], counts["launches"]["rmsnorm"], counts["forwards"]
+    want_nr = (2 * n_layers + 1) * fwd if on_card else 0
+    if fwd <= 0 or nf != 0 or nr != want_nr:
+        raise AssertionError(f"serve {where}: {fwd} paged forwards, launches flash={nf} (want 0), rmsnorm={nr} "
+                             f"(want {want_nr})")
+
+
+def _post_json(url: str, body: dict) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=SERVE_REQUEST_TIMEOUT_S) as resp:
+        return json.loads(resp.read())
+
+
+def phase_serve(served: dict, launches: dict, spec: ServeSpec | None = None) -> None:
+    """llama-7b behind `LLMDeployment` on the port's Serve, in cluster mode:
+    one colocated replica on the whole card that must return the engine
+    phase's lone-request tokens exactly (through the handle and over HTTP)
+    and serve the engine phase's burst; then two disaggregated pairs on
+    half the card each (prefill, decode): at the parity phase's f32 model
+    the handoff returns the colocated tokens exactly, at full width in bf16
+    the decode replica imports every full block of each prompt."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core import api
+    from ray_tpu_torch.models.gpt import CONFIGS
+    from ray_tpu_torch.serve.engine.engine import EngineOptions, InferenceEngine
+
+    spec = spec or ServeSpec()
+    on_card = spec.device is None
+    full, parity = spec.full, spec.parity
+    engine_options, parity_options = spec.engine_options, spec.parity_options
+    cfg = CONFIGS[spec.model](**full)
+    n = served["max_tokens"]
+    free_before = torch.cuda.mem_get_info()[0] if on_card else None
+    serve_launches = {}
+    replica_cls = _smoke_replica_class()
+
+    def tally(where: str, replica, n_layers: int) -> dict:
+        counts = _replica_call(replica, "smoke_counts")
+        _check_replica_launches(where, counts, n_layers, on_card)
+        for k, v in counts["launches"].items():
+            serve_launches[k] = serve_launches.get(k, 0) + v
+        return counts
+
+    t0 = time.perf_counter()
+    rt.init(**spec.init)
+    backend = api._global_runtime().backend
+    session_dir, controller = backend.session_dir, backend._controller_proc.pid
+    try:
+        serve.start(http_options={"host": "127.0.0.1", "port": 0})
+        log(f"serve: cluster and Serve up in {time.perf_counter() - t0:.2f} s, resources {rt.cluster_resources()}")
+
+        # 1. Colocated: one replica on the whole card.
+        t0 = time.perf_counter()
+        handle = serve.run(_llm_app(replica_cls, spec.model, full, engine_options, spec.device,
+                                    ray_actor_options={"num_gpus": 1, "max_concurrency": 16}),
+                           name="llm", route_prefix="/llm", timeout_s=SERVE_BOOT_TIMEOUT_S)
+        boot_s = time.perf_counter() - t0
+        (replica, _), = _replicas("llm")
+        _replica_call(replica, "smoke_counts", True)
+        log(f"serve: colocated LLMDeployment replica ({spec.model} {full}, num_gpus=1) booted in {boot_s:.2f} s "
+            f"(timeout {SERVE_BOOT_TIMEOUT_S:.0f} s)")
+        lone_s = []
+        for i, (p, want) in enumerate(zip(served["lone_prompts"], served["lone_tokens"])):
+            t0 = time.perf_counter()
+            got = handle.generate.remote(p, n).result(timeout_s=SERVE_REQUEST_TIMEOUT_S)["tokens"]
+            lone_s.append(time.perf_counter() - t0)
+            if got != want:
+                raise AssertionError(f"serve: lone request {i} ({len(p)} tokens) through the handle differs from the "
+                                     f"engine phase's lone run: {_first_difference(got, want)}")
+        log(f"serve: {len(lone_s)} lone requests through the handle equal the engine phase's lone tokens; "
+            f"latency {[round(x, 3) for x in lone_s]} s")
+        url = f"http://127.0.0.1:{serve.http_port()}/llm"
+        t0 = time.perf_counter()
+        got = _post_json(url, {"prompt": served["lone_prompts"][0], "max_new_tokens": n})["tokens"]
+        http_s = time.perf_counter() - t0
+        want = served["lone_tokens"][len(served["lone_prompts"])]
+        if got != want:
+            raise AssertionError(f"serve: the HTTP request differs from the engine phase's repeat of prompt 0: "
+                                 f"{_first_difference(got, want)}")
+        log(f"serve: HTTP POST {url} ({len(served['lone_prompts'][0])} tokens, {n} new): round trip {http_s:.3f} s, "
+            f"tokens equal the engine phase's")
+        t0 = time.perf_counter()
+        burst = _stream_burst(handle, served["requests"], n)
+        wall = time.perf_counter() - t0
+        if any(len(t) != n for t, _, _ in burst):
+            raise AssertionError(f"serve: burst requests unfinished: {[len(t) for t, _, _ in burst]}")
+        same = sum(t == w for (t, _, _), w in zip(burst, served["tokens"]))
+        ttft = sorted(f for _, f, _ in burst)
+        tpot = sorted((total - f) / (n - 1) for _, f, total in burst)
+        tok_s = len(burst) * n / wall
+        log(f"serve: burst of {len(burst)} streamed requests ({n} new each): {tok_s:.1f} tokens/s through Serve "
+            f"against the engine phase's {served['tokens_per_s']:.1f} in process; TTFT p50 "
+            f"{ttft[len(ttft) // 2] * 1e3:.1f} ms, p99 {_p99(ttft) * 1e3:.1f} ms, TPOT p50 "
+            f"{tpot[len(tpot) // 2] * 1e3:.2f} ms; {same} of {len(burst)} equal the in-process batched tokens "
+            f"(not gated: batching by arrival changes bf16 rounding)")
+        counts = tally("colocated", replica, cfg.n_layers)
+        log(f"serve: colocated replica: {counts['forwards']} paged forwards, launches {counts['launches']}")
+        serve.delete("llm")
+
+        # 2. Disaggregated, f32 at the parity phase's model: exact against colocated.
+        pcfg = CONFIGS[spec.model](**parity)
+        if on_card:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        prompts = [served["requests"][0], served["requests"][1][:100]]
+        colo = InferenceEngine(pcfg, None, EngineOptions(**parity_options, seed=0),
+                               device="cuda" if on_card else spec.device)
+        colo.start()
+        try:
+            want = [colo.generate(p, n) for p in prompts]
+        finally:
+            colo.shutdown()
+        del colo
+        if on_card:
+            torch.cuda.empty_cache()
+        _disagg(replica_cls, spec, parity, parity_options, "disagg32", prompts, want, n, tally, pcfg, exact=True)
+
+        # 3. Disaggregated at full width: every full block imported.
+        _disagg(replica_cls, spec, full, engine_options, "disagg", served["lone_prompts"],
+                served["lone_tokens"], n, tally, cfg, exact=False)
+    finally:
+        left = _end_session(controller, session_dir, serve.shutdown)
+    if left:
+        raise AssertionError(f"serve: processes outlived shutdown (killed): {left}")
+    launches["serve"] = serve_launches
+    log(f"serve: launches in the replicas {serve_launches}")
+    if on_card:
+        deadline = time.monotonic() + 60
+        while torch.cuda.mem_get_info()[0] < free_before - MEMORY_RELEASE_SLACK and time.monotonic() < deadline:
+            time.sleep(0.5)
+        free = torch.cuda.mem_get_info()[0]
+        log(f"serve: card memory free after shutdown {free / 2**30:.2f} GiB (before the phase "
+            f"{free_before / 2**30:.2f} GiB)")
+        if free < free_before - MEMORY_RELEASE_SLACK:
+            raise AssertionError(f"serve: the card's memory was not released: {free / 2**30:.2f} GiB free, "
+                                 f"{free_before / 2**30:.2f} GiB before")
+
+
+def _p99(sorted_values: list) -> float:
+    return sorted_values[min(len(sorted_values) - 1, int(0.99 * len(sorted_values)))]
+
+
+def _exact(what: str, got: list, want: list) -> None:
+    if got != want:
+        raise AssertionError(f"{what} differs from colocated decoding: {_first_difference(got, want)}")
+
+
+def _disagg(replica_cls, spec: ServeSpec, overrides: dict, engine_options: dict, name: str, prompts: list,
+            want: list, n: int, tally, cfg, exact: bool) -> None:
+    """One prefill and one decode replica on half the card each. Every
+    prompt goes through generate and then generate_stream (the handle runs
+    the prefill -> export -> import -> decode handoff); the decode replica
+    must have imported every full block of every prompt (an import that
+    degrades to recompute fails), and with `exact` each result must equal
+    `want` (colocated decoding), else the equal tokens are counted."""
+    from ray_tpu_torch import serve
+
+    t0 = time.perf_counter()
+    handle = serve.run(_llm_app(replica_cls, spec.model, overrides, engine_options, spec.device,
+                                num_replicas=2, prefill_replicas=1, max_ongoing_requests=64,
+                                ray_actor_options={"num_gpus": 0.5, "max_concurrency": 16}),
+                       name=name, route_prefix=f"/{name}", timeout_s=SERVE_BOOT_TIMEOUT_S)
+    boot_s = time.perf_counter() - t0
+    reps = _replicas(name)
+    if sorted(role or "" for _, role in reps) != ["decode", "prefill"]:
+        raise AssertionError(f"serve {name}: replica roles {[role for _, role in reps]}")
+    for rep, _ in reps:
+        _replica_call(rep, "smoke_counts", True)
+    results = []
+    for p in prompts:
+        t0 = time.perf_counter()
+        got = handle.generate.remote(p, n).result(timeout_s=SERVE_REQUEST_TIMEOUT_S)["tokens"]
+        gen_s = time.perf_counter() - t0
+        t0, first, streamed = time.perf_counter(), None, []
+        for tok in handle.options(stream=True).generate_stream.remote(p, n):
+            if first is None:
+                first = time.perf_counter() - t0
+            streamed.append(tok)
+        results.append((got, streamed, gen_s, first))
+    stats = {role: _replica_call(rep, "engine_stats") for rep, role in reps}
+    counts = {role: tally(f"{name} {role}", rep, cfg.n_layers) for rep, role in reps}
+    serve.delete(name)
+
+    bs = engine_options["block_size"]
+    full_blocks = [len(p) // bs for p in prompts]
+    block_bytes = 2 * cfg.n_layers * cfg.n_heads * bs * cfg.d_head * cfg.dtype.itemsize
+    imported, exported = stats["decode"]["blocks_imported"], stats["prefill"]["blocks_exported"]
+    same = [sum(a == b for a, b in zip(got, w)) for (got, _, _, _), w in zip(results, want)]
+    log(f"serve {name}: prefill + decode replica ({spec.model} {overrides}, num_gpus=0.5 each) booted in "
+        f"{boot_s:.2f} s; {len(prompts)} prompts ({[len(p) for p in prompts]} tokens), generate then "
+        f"generate_stream each: blocks exported {exported}, imported {imported} (full blocks "
+        f"{sum(full_blocks)}); KV bytes exported per handoff {[b * block_bytes for b in full_blocks]}; "
+        f"import ms per handoff {[round(x, 2) for x in counts['decode']['import_ms']]}; generate latency "
+        f"{[round(r[2], 3) for r in results]} s; handoff TTFT (stream) {[round(r[3] * 1e3, 1) for r in results]} "
+        f"ms; tokens equal to colocated {same} of {n} each")
+    if imported < sum(full_blocks):
+        raise AssertionError(f"serve {name}: the decode replica imported {imported} blocks, fewer than the prompts' "
+                             f"{sum(full_blocks)} full blocks (a handoff degraded to recompute)")
+    for i, (got, streamed, _, _) in enumerate(results):
+        if len(got) != n or len(streamed) != n:
+            raise AssertionError(f"serve {name}: request {i} returned {len(got)} / {len(streamed)} tokens, want {n}")
+        if exact:
+            _exact(f"serve {name}: request {i} (generate)", got, want[i])
+            _exact(f"serve {name}: request {i} (generate_stream)", streamed, want[i])
 
 
 def main(argv=None) -> int:
@@ -1347,13 +1805,13 @@ def main(argv=None) -> int:
         phase_train_parity(launches)
     if "train" in phases:
         phase_train(launches)
-    generated = None
+    generated = served = None
     if "generate" in phases or "engine" in phases:
         cfg, params = _llama_params()
         if "generate" in phases:
             generated = phase_generate(cfg, params, launches)
         if "engine" in phases:
-            phase_engine(cfg, params, launches)
+            served = phase_engine(cfg, params, launches)
         del params  # the runtime phase's actor loads its own copy
         torch.cuda.empty_cache()
     if "runtime" in phases:
@@ -1362,6 +1820,10 @@ def main(argv=None) -> int:
         log(f"driver device memory before the runtime phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
             "allocated")
         phase_runtime(generated, launches)
+    if "serve" in phases:
+        if served is None:
+            ap.error("the serve phase holds its replicas' tokens against the engine phase's: run both")
+        phase_serve(served, launches)
     log(f"wall time {time.perf_counter() - t_start:.1f} s")
 
     if phases != list(PHASES):
@@ -1382,7 +1844,9 @@ def main(argv=None) -> int:
              "generate_shape_library_ms", "long_shape_ms", "long_shape_library_ms",
              # rmsnorm: every timed row (kernel, F.rms_norm, bound), the launch floor, a
              # plain copy of the record shape's bytes
-             "shapes", "launch_floor_ms", "copy_ms")
+             "shapes", "launch_floor_ms", "copy_ms",
+             # the three flash kernels: their wide-head route (D > 256) at WIDE_ATTN
+             "wide")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
                                   for r in results.values()]}), flush=True)
     print(card_line(), flush=True)

@@ -131,6 +131,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rt_flash_bwd_dkv.restype = i
     lib.rt_flash_bwd_plan_bytes.argtypes = []
     lib.rt_flash_bwd_plan_bytes.restype = i
+    # The wide-head route (flash_wide.LaunchPlan in place of the tiled plans)
+    # takes its tiled counterpart's arguments.
+    for wide, tiled in (("fwd", "fwd"), ("dq", "bwd_dq"), ("dkv", "bwd_dkv")):
+        getattr(lib, f"rt_flash_wide_{wide}").argtypes = getattr(lib, f"rt_flash_{tiled}").argtypes
+        getattr(lib, f"rt_flash_wide_{wide}").restype = i
+    lib.rt_flash_wide_plan_bytes.argtypes = []
+    lib.rt_flash_wide_plan_bytes.restype = i
     # x, w, y, N, D, row stride (elements), eps, x dtype code, w dtype code, launch plan
     # (rmsnorm.LaunchPlan), stream
     lib.rt_rmsnorm.argtypes = [p, p, p, i, i, ll, f, i, i, p, p]

@@ -30,8 +30,13 @@ works per q tile, dK/dV per key tile, so the launches' outputs do not
 overlap), heads in ranges of at most MAX_BH. Every dQ launch runs before
 the first dK/dV launch, which reads Δ of every q row.
 
+Head dims above 256 take the wide-head route (`flash_wide`,
+`csrc/flash_wide.cu`): `launches` then holds a `flash_wide.WidePlan` per
+head range, for either dtype, and the wrappers launch `rt_flash_wide_dq` and
+`rt_flash_wide_dkv`, which take the same arguments.
+
 `flash_bwd_dq.launches` and `flash_bwd_dkv.launches` count launches of each
-kernel, and only those.
+kernel (either route), and only those.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from functools import lru_cache
 
 import torch
 
-from . import build
+from . import build, flash_wide
 from .flash_fwd import (
     ELEM,
     HEAD_DIMS,
@@ -230,8 +235,11 @@ def launches(kind: str, B: int, H: int, S: int, Skv: int, D: int, causal: bool, 
              bf16: bool = True) -> tuple:
     """The launches of one call of the `kind` kernel ("dq" or "dkv"): every
     (head range, group of at most MAX_TILES outer tiles) for bf16, every
-    head range for f32."""
+    head range for f32 and for a head dim above 256 (the wide route)."""
     chunks = bh_chunks(B, H)
+    if D > HEAD_DIMS[-1]:
+        return tuple(Launch(b0, b1, h0, h1, flash_wide.plan(kind, (b1 - b0) * (h1 - h0), S, Skv, D))
+                     for b0, b1, h0, h1 in chunks)
     if not bf16:
         return tuple(Launch(*c, None) for c in chunks)
     groups = split(_tiles(kind, S, Skv, D, causal), MAX_TILES)
@@ -314,8 +322,9 @@ def _checked(q, k, v, do, causal: bool, rows: dict):
     Skv = k.shape[2]
     if k.shape[0] != B or k.shape[1] != H or k.shape[3] != D:
         raise ValueError(f"k{tuple(k.shape)} does not match q{tuple(q.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if D not in HEAD_DIMS and not flash_wide.takes(D):
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS} nor a multiple of {flash_wide.STREAM_COLS} "
+                         f"above them")
     if S < 1 or Skv < 1:
         raise ValueError(f"unsupported sizes S={S}, Skv={Skv}")
     if causal and Skv < S:
@@ -335,19 +344,27 @@ def _launch(fn: str, kind: str, inputs: tuple, rows: tuple, outs: tuple, map_ord
     passed in bytes), the `rows` (lse, Δ: [B*H, S] f32), the `outs` ([B, H,
     L, D]), each at the launch's heads, then the sizes, the strides, and for
     bf16 the launch's plan with tensor maps over (inputs + outs)[i] for i in
-    `map_order`. Returns the number of launches."""
+    `map_order`; above head dim 256, `rt_flash_wide_<kind>` with the same
+    arguments and its wide plan. Returns the number of launches."""
     q, k = inputs[:2]
     B, H, S, D = q.shape
     lib = build.library()
     bf16 = q.dtype == torch.bfloat16
-    if bf16:
+    wide = D > HEAD_DIMS[-1]
+    if wide:
+        flash_wide.check_plan_layout(lib)
+        fn = f"rt_flash_wide_{kind}"
+    elif bf16:
         _check_plan_layout(lib)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lns = launches(kind, B, H, S, k.shape[2], D, bool(causal), _sm_count(q.device), bf16)
     for ln in lns:
         ins, os_ = tuple(ln.heads(t) for t in inputs), tuple(ln.heads(t) for t in outs)
         views = ins + os_
-        lp = launch_plan(ln.plan, *(views[i] for i in map_order)) if bf16 else None  # f32 tiles itself
+        if wide:
+            lp = flash_wide.launch_plan(ln.plan)
+        else:  # f32 tiles itself
+            lp = launch_plan(ln.plan, *(views[i] for i in map_order)) if bf16 else None
         err = getattr(lib, fn)(
             *(t.data_ptr() for t in ins + tuple(ln.rows(r, H) for r in rows) + os_),
             ln.b1 - ln.b0, ln.h1 - ln.h0, S, k.shape[2], D, *(s for t in ins for s in byte_strides(t)),

@@ -25,7 +25,12 @@ grid would overflow: q tiles in groups of at most MAX_Q_TILES per launch
 of at most MAX_BH (the f32 kernel's grid is (q tiles, B*H)). At the main
 path's shapes a call is one launch.
 
-`flash_fwd.launches` counts launches of the kernel, and only those.
+Head dims above 256 take the wide-head route (`flash_wide`, `csrc/flash_wide.cu`):
+`launches` then holds a `flash_wide.WidePlan` per head range, for either
+dtype, and `flash_fwd` launches `rt_flash_wide_fwd`.
+
+`flash_fwd.launches` counts launches of the kernel (either route), and only
+those.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, flash_wide
 
 HEAD_DIMS = (32, 64, 128, 256)
 MAX_STAGES = 4
@@ -220,8 +225,12 @@ def split(tiles: tuple, cap: int) -> tuple:
 def launches(B: int, H: int, S: int, Skv: int, D: int, causal: bool, sm_count: int,
              bf16: bool = True) -> tuple:
     """The launches of one forward call: every (head range, group of at
-    most MAX_Q_TILES q tiles) for bf16, every head range for f32."""
+    most MAX_Q_TILES q tiles) for bf16, every head range for f32 and for a
+    head dim above 256 (the wide route)."""
     chunks = bh_chunks(B, H)
+    if D > HEAD_DIMS[-1]:
+        return tuple(Launch(b0, b1, h0, h1, flash_wide.plan("fwd", (b1 - b0) * (h1 - h0), S, Skv, D))
+                     for b0, b1, h0, h1 in chunks)
     if not bf16:
         return tuple(Launch(*c, None) for c in chunks)
     groups = split(_tiles(S, Skv, D, causal), MAX_Q_TILES)
@@ -324,8 +333,10 @@ def flash_fwd(q, k, v, causal: bool, scale: float, return_lse: bool = False):
     Skv = k.shape[2]
     if k.shape[0] != B or k.shape[1] != H or k.shape[3] != D:
         raise ValueError(f"k{tuple(k.shape)} does not match q{tuple(q.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    wide = flash_wide.takes(D)
+    if D not in HEAD_DIMS and not wide:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS} nor a multiple of {flash_wide.STREAM_COLS} "
+                         f"above them")
     if S < 1 or Skv < 1:
         raise ValueError(f"unsupported sizes S={S}, Skv={Skv}")
     if causal and Skv < S:
@@ -337,13 +348,19 @@ def flash_fwd(q, k, v, causal: bool, scale: float, return_lse: bool = False):
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device) if return_lse else None
     lib = build.library()
     bf16 = q.dtype == torch.bfloat16
-    if bf16:
+    if wide:
+        flash_wide.check_plan_layout(lib)
+    elif bf16:
         _check_plan_layout(lib)
+    fn = lib.rt_flash_wide_fwd if wide else lib.rt_flash_fwd
     stream = torch.cuda.current_stream(q.device).cuda_stream
     for ln in launches(B, H, S, Skv, D, bool(causal), _sm_count(q.device), bf16):
         qc, kc, vc, oc = (ln.heads(x) for x in (q, k, v, o))
-        lp = launch_plan(ln.plan, qc, kc, vc, oc) if bf16 else None  # the f32 kernel tiles itself
-        err = lib.rt_flash_fwd(
+        if wide:
+            lp = flash_wide.launch_plan(ln.plan)
+        else:
+            lp = launch_plan(ln.plan, qc, kc, vc, oc) if bf16 else None  # the f32 kernel tiles itself
+        err = fn(
             qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), oc.data_ptr(),
             ln.rows(lse, H).data_ptr() if lse is not None else None,
             ln.b1 - ln.b0, ln.h1 - ln.h0, S, Skv, D,

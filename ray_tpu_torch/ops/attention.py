@@ -18,8 +18,10 @@ non-differentiable on every device, as the reference stop-gradients it.
 On CUDA a head dim the kernels are not compiled for is zero-padded up to
 the next one (`kernels.flash_fwd.HEAD_DIMS`) and the outputs sliced back:
 zero columns change neither QKᵀ nor the first D columns of P·V, and the
-scale is fixed from the true D before the pad. Beyond the widest compiled
-head dim the op raises; it never falls back to the plain version.
+scale is fixed from the true D before the pad. Above the widest compiled
+head dim (256), D is padded to a multiple of 64 and the wrappers take the
+wide-head route (`kernels/csrc/flash_wide.cu`), so every D runs on the
+card; the op never falls back to the plain version.
 
 Shapes follow [batch, heads, seq, head_dim] throughout. Causal rows are
 END-aligned with the keys: query i sits at position i + (Skv - S), which
@@ -91,14 +93,15 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool, scale: float):
 
 
 def padded_head_dim(D: int) -> int:
-    """The narrowest head dim the flash kernels are compiled for that holds D."""
+    """The narrowest head dim the flash kernels are compiled for that holds
+    D; above the widest, D rounded up to the wide route's multiple of 64."""
+    from ..kernels import flash_wide
     from ..kernels.flash_fwd import HEAD_DIMS
 
     for d in HEAD_DIMS:
         if d >= D:
             return d
-    raise ValueError(f"head_dim {D} is wider than {HEAD_DIMS[-1]}, the widest head dim the "
-                     "flash kernels are compiled for")
+    return flash_wide.padded_head_dim(D)
 
 
 def _pad_d(x, Dp: int):

@@ -5,6 +5,10 @@ a paged KV cache), the port of `ray_tpu/serve/engine`.
     from the reference (no device code; the code is unchanged).
   * `engine` — the driver loop over `models/gpt.py`'s `prefill_paged` /
     `decode_step_paged` / `verify_step_paged` on PyTorch tensors.
+  * `kv_transfer` — the span descriptor that carries computed KV blocks
+    between replicas over the runtime's bulk plane (copied).
+  * `deployment` — `LLMDeployment`, the engine as a Serve replica; it
+    resolves lazily (it pulls in the Serve control plane).
 """
 
 from .engine import EngineOptions, InferenceEngine, RequestOutput
@@ -22,4 +26,13 @@ __all__ = [
     "Scheduler",
     "SchedulerOutput",
     "Sequence",
+    "LLMDeployment",
 ]
+
+
+def __getattr__(name):
+    if name == "LLMDeployment":
+        from .deployment import LLMDeployment
+
+        return LLMDeployment
+    raise AttributeError(name)

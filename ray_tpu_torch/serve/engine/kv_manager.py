@@ -21,7 +21,7 @@ falls back to evicting the coldest cached block. Admission math
 (`can_allocate` / `free_blocks`) therefore counts blank + cached blocks;
 `KVStats.utilization` counts only live (referenced) blocks.
 
-Tiered cache (the cluster-wide half): with a `host_tier`
+Tiered cache (the cluster-wide half of the reference's design): with a `host_tier`
 (`kv_tier.HostKVTier`) attached, an HBM eviction SAVES the block's bytes to
 host RAM instead of killing the content — the manager queues (hash, block)
 save orders the engine drains (`drain_saves`) before the block is
@@ -439,7 +439,7 @@ class KVBlockManager:
         drafts the verify step may reject) must not hand the child slots
         whose content is undefined — grow()'s COW check keys off `_lens`,
         so an un-trimmed child writing below the over-allocated tail would
-        miss its copy.
+        miss its copy (a caveat the reference once documented, now handled).
         The watermark lags true compute by at most the notification
         granularity; the trimmed tail is re-derivable (the child recomputes
         or re-hits it). A parent allocated via plain `allocate()` (token

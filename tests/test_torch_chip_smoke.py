@@ -9,6 +9,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 import chip_smoke
@@ -168,3 +169,46 @@ def test_session_processes_are_this_runs_only(tmp_path):
         for p in procs.values():
             p.kill()
             p.wait()
+
+
+TINY = dict(vocab_size=64, n_layers=2, d_model=48, n_heads=3, d_head=16, d_mlp=96, max_seq=256,
+            attn_impl="ref", remat=False, pos="rotary", rotary_dim=16, norm="rmsnorm",
+            activation="swiglu", dtype="float32")
+
+
+def test_serve_phase_is_after_runtime():
+    assert chip_smoke.PHASES.index("serve") == chip_smoke.PHASES.index("runtime") + 1
+    assert chip_smoke.PHASES[-1] == "serve"
+
+
+def test_serve_phase_rehearsal_on_the_cpu():
+    """The serve phase's control flow, rehearsed on the CPU with a tiny model
+    (every kernel's plain version, so no launch is counted): a cluster with
+    one advertised GPU and no card, the colocated replica held to a fresh
+    engine's lone-request tokens through the handle and over HTTP, the
+    streamed burst, the f32 disaggregated pair held exactly to colocated
+    decoding, the full-width pair's imports, and the session's processes
+    gone after shutdown."""
+    from ray_tpu_torch.models.gpt import GPTConfig
+    from ray_tpu_torch.serve.engine import EngineOptions, InferenceEngine
+
+    options = {"num_blocks": 64, "block_size": 4, "max_num_seqs": 4}
+    spec = chip_smoke.ServeSpec(model="gpt2-small", full=TINY, parity={**TINY, "n_layers": 1},
+                                engine_options=options, parity_options=options,
+                                init={"num_cpus": 4, "num_gpus": 1}, device="cpu")
+    rng = np.random.default_rng(5)
+    requests = [rng.integers(0, 64, n).tolist() for n in (9, 17, 12, 21, 30, 8)]
+    n = 6
+
+    def engine():
+        return InferenceEngine(GPTConfig(**TINY), None, EngineOptions(**options, seed=0), device="cpu")
+
+    batched = engine()
+    rids = [batched.submit(p, n) for p in requests]
+    chip_smoke._drain(batched)
+    lone = chip_smoke._lone_runs(engine(), requests[:2], n)
+    served = {"requests": requests, "tokens": [list(batched.stream(r)) for r in rids], "max_tokens": n,
+              "tokens_per_s": 1.0, "lone_prompts": requests[:2], "lone_tokens": [t for t, _ in lone]}
+    launches = {}
+    chip_smoke.phase_serve(served, launches, spec)
+    assert set(launches["serve"]) == set(chip_smoke._kernels()) and not any(launches["serve"].values())

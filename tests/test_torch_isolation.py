@@ -4,10 +4,12 @@ or names a module of `ray_tpu` in a string (a `-m` path boots the
 reference's processes); importing the port loads neither; and its entry
 points refuse to run without a card unless the caller asks for the CPU.
 
-The runtime is a copy of the reference's (`RUNTIME_COPY`): each copied
-file equals its reference after the import rewrite (`rewrite`), except the
-files in `DIVERGES`, where every changed line sits next to a comment that
-names the reference line it replaces."""
+The runtime and Serve are a copy of the reference's (`RUNTIME_COPY`): each
+copied file equals its reference after the import rewrite (`rewrite`),
+except the files in `DIVERGES`, where every changed line sits next to a
+comment that names the reference line it replaces. The engine (`PORTS`) is
+a port, not a copy: it keeps the reference's methods, in order, and the
+order of the calls its `step()` makes."""
 
 import ast
 import difflib
@@ -84,6 +86,13 @@ RUNTIME_COPY = (
     "util/flight.py", "util/chaos.py", "util/placement_group.py", "util/actor_pool.py", "util/queue.py",
     "util/state.py", "util/system_metrics.py", "util/memory_monitor.py", "util/accelerators/__init__.py",
     "util/accelerators/accelerator.py",
+    # Serve: the control plane, router, proxies, fleet policy, the KV
+    # bookkeeping and transfer plane, the engine and its deployment.
+    "serve/__init__.py", "serve/_common.py", "serve/context.py", "serve/batching.py", "serve/deployment.py",
+    "serve/fleet", "serve/replica.py", "serve/handle.py", "serve/controller.py", "serve/api.py",
+    "serve/http_proxy.py", "serve/grpc_proxy.py", "serve/engine/kv_transfer.py", "serve/engine/kv_manager.py",
+    "serve/engine/scheduler.py", "serve/engine/kv_tier.py", "serve/engine/spec.py", "serve/engine/deployment.py",
+    "serve/engine/engine.py",
 )
 # Port-only files inside the copied directories.
 PORT_ONLY = {"core/devices.py", "core/host_names.py"}
@@ -105,7 +114,14 @@ DIVERGES = {
     "util/accelerators/__init__.py": "no TPU manager",
     "util/accelerators/accelerator.py": "the NVIDIA GPU manager first, nvidia-smi detection",
     "util/system_metrics.py": "card memory in use from torch, not JAX",
+    "serve/engine/kv_manager.py": "docstring: two lines without the reference's own history",
+    "serve/engine/kv_transfer.py": "docstring and a comment without the reference's own history",
+    "serve/fleet/autoscale.py": "docstring: a line without the reference's own history",
+    "serve/engine/deployment.py": "dtype by device.resolve_dtype, a device argument",
+    "serve/engine/engine.py": "the engine on torch tensors: a port (PORTS)",
 }
+# Diverging files that are ports, held by their structure, not line by line.
+PORTS = {"serve/engine/engine.py": "InferenceEngine"}
 
 
 def rewrite(text: str) -> str:
@@ -146,6 +162,9 @@ def test_copy_does_not_drift(rel):
     if rel.endswith("_pb2.py") or rel.endswith(".proto"):
         assert port == ref, "generated protobuf and its source stay byte-identical"
         return
+    if rel in PORTS:
+        _assert_same_structure(ref.decode(), port.decode(), PORTS[rel])
+        return
     want = rewrite(ref.decode()).splitlines()
     got = port.decode().splitlines()
     if rel not in DIVERGES:
@@ -156,6 +175,38 @@ def test_copy_does_not_drift(rel):
         near = got[max(0, j1 - 3):j2 + 3]
         assert any("reference" in line for line in near), \
             f"{rel}:{j1 + 1}: a change without a comment naming the reference line: {got[j1:j2]}"
+
+
+def _methods(tree, cls: str) -> dict:
+    node = next(n for n in tree.body if isinstance(n, ast.ClassDef) and n.name == cls)
+    return {f.name: f for f in node.body if isinstance(f, ast.FunctionDef)}
+
+
+def _self_calls(fn) -> list:
+    """The `self.<name>(...)` calls of a function, in source order."""
+    calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+             and isinstance(n.func.value, ast.Name) and n.func.value.id == "self"]
+    return [c.func.attr for c in sorted(calls, key=lambda c: (c.lineno, c.col_offset))]
+
+
+def _assert_same_structure(ref: str, port: str, cls: str):
+    """A ported class keeps every method of the reference's, in the
+    reference's order (the port may add helpers), and each step of its
+    `step()` in the same order."""
+    want, got = _methods(ast.parse(ref), cls), _methods(ast.parse(port), cls)
+    missing = [m for m in want if m not in got]
+    assert not missing, f"{cls}: methods of the reference not ported: {missing}"
+    assert [m for m in got if m in want] == list(want), f"{cls}: methods out of the reference's order"
+    assert _self_calls(got["step"]) == _self_calls(want["step"]), f"{cls}.step() calls differ"
+
+
+def test_structure_check_catches_a_missing_method_and_a_reordered_step():
+    ref = "class E:\n    def a(self): pass\n    def step(self):\n        self.a()\n        self.b()\n"
+    _assert_same_structure(ref, ref.replace("def a(self): pass", "def a(self): pass\n    def c(self): pass"), "E")
+    with pytest.raises(AssertionError, match="not ported"):
+        _assert_same_structure(ref, ref.replace("def a(self): pass", "def z(self): pass"), "E")
+    with pytest.raises(AssertionError, match="calls differ"):
+        _assert_same_structure(ref, ref.replace("self.a()\n        self.b()", "self.b()\n        self.a()"), "E")
 
 
 def _changed_regions(want: list, got: list, bridge: int = 4):
@@ -221,6 +272,8 @@ def test_importing_the_port_loads_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.kernels.flash_bwd, ray_tpu_torch.optim\n"
         "import ray_tpu_torch.core.api, ray_tpu_torch.dag, ray_tpu_torch.cluster_utils\n"
         "import ray_tpu_torch.core.controller, ray_tpu_torch.core.worker_main\n"
+        "import ray_tpu_torch.serve, ray_tpu_torch.serve.engine.deployment, ray_tpu_torch.serve.fleet\n"
+        "import ray_tpu_torch.serve.engine.kv_transfer, ray_tpu_torch.serve.http_proxy\n"
         "new = set(sys.modules) - before\n"
         f"print(sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}))\n"
     )

@@ -429,12 +429,29 @@ def test_flash_op_pads_head_dims(cuda, dtype, D, S, Skv, causal):
 
 
 def test_flash_op_refuses_head_dims_past_the_widest():
+    """No head dim is refused any more: up to 256 the op pads to the next
+    compiled one, above it to a multiple of 64 (the wide-head route)."""
     from ray_tpu_torch.ops.attention import padded_head_dim
 
     assert [padded_head_dim(d) for d in (1, 16, 32, 33, 80, 96, 128, 200, 256)] == \
         [32, 32, 32, 64, 128, 128, 128, 256, 256]
-    with pytest.raises(ValueError, match="257 is wider than 256"):
-        padded_head_dim(257)
+    assert [padded_head_dim(d) for d in (257, 288, 320, 321, 512, 1000)] == [320, 320, 320, 384, 512, 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [288, 512, 1000])
+@pytest.mark.parametrize("S,Skv,causal", [(100, 100, True), (100, 100, False), (70, 130, True),
+                                          (64, 200, False), (1, 37, True)])
+def test_flash_wide_route_matches_plain(cuda, dtype, D, S, Skv, causal):
+    """Head dims above 256 run the wide-head kernels (one launch each of the
+    forward, dQ and dK/dV): o, lse and all three gradients against the plain
+    versions at the bf16 / f32 bars."""
+    before = (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    _op_matches_plain(_randn((2, 3, S, D), dtype, cuda, 50), _randn((2, 3, Skv, D), dtype, cuda, 51),
+                      _randn((2, 3, Skv, D), dtype, cuda, 52), causal, TOL[dtype])
+    after = (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    assert tuple(b - a for a, b in zip(before, after)) == (1, 1, 1)
 
 
 @pytest.mark.cuda
