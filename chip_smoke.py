@@ -33,6 +33,14 @@ Phases:
   6. train    bench.py's step: gpt2-large, B=13 x S=1024, bf16 compute, f32
               master weights, remat "attn", AdamW(3e-4, wd 0.1, bf16 mu):
               tokens/s, step ms, MFU, peak memory, launches per step
+  6b. parallel the mesh path on a one-rank NCCL world (make_mesh(), all six
+              axes 1): gpt2-medium-moe (8 experts, top-2) training at full
+              width through make_train_step(mesh=) (tokens/s, step ms,
+              device busy, peak memory, flash launches); the MoE model at 2
+              layers in f32, card vs CPU (loss and every gradient); the
+              train phase's gpt2-large step through the mesh against the
+              plain step (first loss, tokens/s); llama-7b widths at 2 layers,
+              bf16: Ulysses equal to the flash forward, ring within bf16
   7. generate full llama-7b, bf16, seeded random weights: make_generate
   8. engine   full llama-7b, bf16: the continuous-batching engine with
               prefix caching, chunked prefill and speculative decoding
@@ -58,6 +66,7 @@ without a CUDA card. `--phases` runs a subset (no final ok line then).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -70,8 +79,8 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-PHASES = ("device", "build", "kernels", "parity", "train_parity", "train", "generate", "engine",
-          "runtime", "serve")
+PHASES = ("device", "build", "kernels", "parity", "train_parity", "train", "parallel", "generate",
+          "engine", "runtime", "serve")
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, SXM
 H100_F32_FLOPS = 67e12     # CUDA-core f32 peak, SXM
 H100_BYTES_PER_S = 3.35e12
@@ -198,6 +207,19 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in _kernels().items()}
+
+
+@contextlib.contextmanager
+def counted(total: dict):
+    """One run of a path: the counts are set to 0 just before the block and
+    read just after it into the dict it yields, which is added to `total`
+    (the path's launches over all of its runs)."""
+    reset_launches()
+    run: dict = {}
+    yield run
+    run.update(read_launches())
+    for name, n in run.items():
+        total[name] = total.get(name, 0) + n
 
 
 # ------------------------------------------------------------------ build
@@ -938,6 +960,270 @@ def phase_train(launches: dict) -> None:
     _profile(f"train gpt2-large B={B} S={S}, one step", lambda: step(params, batch))
     del params, step
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ parallel
+MOE_TRAIN_SHAPE = (8, 1024)   # B, S of the gpt2-medium-moe step
+MOE_PARITY_SHAPE = (2, 128)
+CP_SHAPE = (2, 1024)          # ring / Ulysses forwards at llama-7b widths, 2 layers
+
+
+def _one_rank_nccl_world() -> None:
+    """A world of one rank on card 0, its store on a free local port."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+
+
+def _placed(params: dict, cfg, mesh) -> dict:
+    from ray_tpu_torch.models.gpt import param_shardings
+    from ray_tpu_torch.parallel import place
+
+    shardings = param_shardings(cfg, mesh)
+    return {k: place(v, mesh, shardings[k]).detach() for k, v in params.items()}
+
+
+def _moe_train(mesh, counts: dict) -> None:
+    """gpt2-medium-moe at full width, B=8 x S=1024, through the mesh."""
+    import torch
+
+    from ray_tpu_torch.models.gpt import gpt2_medium, init_params, make_train_step
+    from ray_tpu_torch.optim import AdamW
+
+    B, S = MOE_TRAIN_SHAPE
+    cfg = gpt2_medium(mlp_type="moe", max_seq=S, remat=True, remat_policy="attn")
+    params = _placed(init_params(cfg, seed=0, device="cuda"), cfg, mesh)  # f32 master weights
+    n = sum(p.numel() for p in params.values())
+    step = make_train_step(cfg, AdamW(params.values(), lr=3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16),
+                           mesh=mesh)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1), device="cuda",
+                                     generator=torch.Generator(device="cuda").manual_seed(1))}
+    n_steps, L = 5, cfg.n_layers
+    per_step = []
+    with counted(counts):
+        t0 = time.perf_counter()
+        _, metrics = step(params, batch)
+        first_loss = metrics["loss"].item()
+        step(params, batch)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            before = read_launches()
+            _, metrics = step(params, batch)
+            per_step.append({k: c - before[k] for k, c in read_launches().items()})
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / n_steps
+        _profile(f"parallel moe train gpt2-medium-moe B={B} S={S}, one step", lambda: step(params, batch))
+    final_loss = metrics["loss"].item()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"parallel moe train gpt2-medium-moe (8 experts, top-2, capacity 1.25) B={B} S={S} bf16 compute, "
+        f"f32 master, remat=attn, AdamW bf16 mu, mesh of one rank: {B * S / dt:.1f} tokens/s, step "
+        f"{dt * 1e3:.2f} ms, peak memory {peak:.2f} GiB, loss {first_loss:.4f} (step 1) -> {final_loss:.4f} "
+        f"(step 7), grad_norm {metrics['grad_norm'].item():.4f}, {n / 1e9:.3f} B params, warm-up 2 steps "
+        f"{warm:.1f} s; launches per step {per_step[-1]}")
+    if not (math.isfinite(final_loss) and final_loss < first_loss):
+        raise AssertionError(f"parallel moe train: loss {first_loss} -> {final_loss} is not finite and falling")
+    want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L, "rmsnorm": 0}
+    for i, c in enumerate(per_step):
+        if c != want:
+            raise AssertionError(f"parallel moe train step {i}: launches {c}, want {want}")
+    del params, step
+    torch.cuda.empty_cache()
+
+
+def _moe_parity(mesh, counts: dict) -> None:
+    """gpt2-medium-moe widths at 2 layers, f32, TF32 off: loss and every
+    gradient of the mesh path on the card against the plain CPU run."""
+    import torch
+
+    from ray_tpu_torch.models.gpt import gpt2_medium, init_params, loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, S = MOE_PARITY_SHAPE
+    cfg = gpt2_medium(mlp_type="moe", n_layers=2, max_seq=S, dtype=torch.float32, remat=True,
+                      remat_policy="attn")
+    cpu = init_params(cfg, seed=1, device="cpu")
+    gpu = _placed({k: v.cuda() for k, v in cpu.items()}, cfg, mesh)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=torch.Generator().manual_seed(5))
+    for p in (*cpu.values(), *gpu.values()):
+        p.requires_grad_(True)
+    t0 = time.perf_counter()
+    loss_cpu = loss_fn(cpu, {"tokens": tokens}, cfg)
+    loss_cpu.backward()
+    t_cpu = time.perf_counter() - t0
+    with counted(counts) as run:
+        loss_gpu = loss_fn(gpu, {"tokens": tokens.cuda()}, cfg, mesh=mesh)
+        loss_gpu.backward()
+    lg, lc = loss_gpu.full_tensor().item(), loss_cpu.item()
+    loss_d = abs(lg - lc) / abs(lc)
+    errs = {k: (gpu[k].grad.full_tensor().cpu() - p.grad).abs().max().item() / max(p.grad.abs().max().item(), 1e-30)
+            for k, p in cpu.items() if p.grad is not None}
+    worst = max(errs, key=errs.get)
+    log(f"parallel moe parity f32 gpt2-medium-moe widths L=2 B={B} S={S} remat=attn, card (mesh) vs CPU: loss "
+        f"{lg:.6f} vs {lc:.6f} (rel diff {loss_d:.2e}); grads max|d|/max|ref|: worst {errs[worst]:.2e} "
+        f"({worst}), router {errs['moe_router']:.2e}, experts in/out {errs['moe_w_in']:.2e}/"
+        f"{errs['moe_w_out']:.2e}; one CPU step {t_cpu:.1f} s; launches on the card {run}")
+    missing = sorted(k for k, p in cpu.items() if (p.grad is None) != (gpu[k].grad is None))
+    if missing or loss_d > 1e-5 or errs[worst] > 1e-4:
+        raise AssertionError(f"parallel moe parity: loss rel diff {loss_d:.2e} (tol 1e-5), grad {worst} "
+                             f"{errs[worst]:.2e} (tol 1e-4), gradient on one side only {missing}")
+    want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers, "rmsnorm": 0}
+    if run != want:
+        raise AssertionError(f"parallel moe parity: launches {run}, want {want}")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+
+
+def _timed_steps(step, params, batch, n: int):
+    """(first step's loss, the last step's metrics, seconds per step over n
+    steps after two)."""
+    import torch
+
+    first = step(params, batch)[1]["loss"].item()
+    step(params, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        metrics = step(params, batch)[1]
+    torch.cuda.synchronize()
+    return first, {k: v.item() for k, v in metrics.items()}, (time.perf_counter() - t0) / n
+
+
+def _sharded_step(mesh, counts: dict) -> None:
+    """The train phase's gpt2-large step through the mesh against the plain
+    step from the same params and batch: the first loss within 1e-4; after
+    the 2 + 4 steps the loss, grad_norm and the update of every param within
+    the bf16 bar; and each one's tokens/s."""
+    import torch
+
+    from ray_tpu_torch.models.gpt import gpt2_large, init_params, make_train_step
+    from ray_tpu_torch.optim import AdamW
+
+    B, S, n = 13, 1024, 4
+    cfg = gpt2_large(max_seq=S, attn_impl="flash", remat=True, remat_policy="attn")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1), device="cuda",
+                                     generator=torch.Generator(device="cuda").manual_seed(1))}
+    init = init_params(cfg, seed=0, device="cuda")
+    out, after = {}, {}
+    for name in ("plain", "mesh"):
+        params = {k: v.clone() for k, v in init.items()}
+        on = mesh if name == "mesh" else None
+        if on is not None:
+            params = _placed(params, cfg, mesh)
+        step = make_train_step(cfg, AdamW(params.values(), lr=3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16),
+                               mesh=on)
+        with counted(counts) if on is not None else contextlib.nullcontext({}) as run:
+            out[name] = _timed_steps(step, params, batch, n)
+        after[name] = {k: (v.full_tensor() if on is not None else v).detach() for k, v in params.items()}
+        del params, step
+        torch.cuda.empty_cache()
+    (lp, mp, tp), (lm, mm, tm) = out["plain"], out["mesh"]
+    num = sum(float((after["mesh"][k] - after["plain"][k]).double().square().sum()) for k in init)
+    den = sum(float((after["plain"][k] - init[k]).double().square().sum()) for k in init)
+    upd = (num / max(den, 1e-300)) ** 0.5
+    rel = {"first loss": abs(lm - lp) / abs(lp), "last loss": abs(mm["loss"] - mp["loss"]) / abs(mp["loss"]),
+           "last grad_norm": abs(mm["grad_norm"] - mp["grad_norm"]) / abs(mp["grad_norm"]), "update": upd}
+    log(f"parallel sharded step gpt2-large B={B} S={S} at one rank, mesh vs plain from the same params: first loss "
+        f"{lm:.6f} vs {lp:.6f}; after {2 + n} steps loss {mm['loss']:.6f} vs {mp['loss']:.6f}, grad_norm "
+        f"{mm['grad_norm']:.6f} vs {mp['grad_norm']:.6f}; relative differences {rel}; mesh {B * S / tm:.1f} "
+        f"tokens/s ({tm * 1e3:.2f} ms/step), plain {B * S / tp:.1f} tokens/s ({tp * 1e3:.2f} ms/step), {n} steps "
+        f"each after two; mesh launches {run}")
+    bars = {"first loss": 1e-4, "last loss": TOL["bf16"], "last grad_norm": TOL["bf16"], "update": TOL["bf16"]}
+    over = {k: v for k, v in rel.items() if not v <= bars[k]}
+    if over:
+        raise AssertionError(f"parallel sharded step: mesh vs plain {over} over the bars {bars}")
+    L = cfg.n_layers
+    want = {"flash_fwd": (2 + n) * L, "flash_bwd_dq": (2 + n) * L, "flash_bwd_dkv": (2 + n) * L, "rmsnorm": 0}
+    if run != want:
+        raise AssertionError(f"parallel sharded step: mesh launches {run}, want {want}")
+    del init, after
+    torch.cuda.empty_cache()
+
+
+def _context_parallel(mesh, counts: dict) -> None:
+    """llama-7b widths, 2 layers, bf16: Ulysses through the mesh equals the
+    flash forward exactly. Ring keeps P in f32 where flash rounds it to
+    bf16, so the two differ by bf16 rounding carried through two layers and
+    the LM head: ring's attention core is held to the flash kernel's bf16
+    bar on one call, and its logits must be no further from the f32 model's
+    than 1.5× the bf16 flash forward's are. Each forward through the mesh
+    runs the RMSNorm kernel; Ulysses runs the flash forward once a layer."""
+    import torch
+
+    from ray_tpu_torch.models.gpt import forward, init_params, llama_7b
+    from ray_tpu_torch.ops.attention import flash_attention, ring_attention
+    from ray_tpu_torch.parallel import use_mesh
+
+    B, S = CP_SHAPE
+    cfg = llama_7b(n_layers=2, max_seq=S)
+    plain = init_params(cfg, seed=2, device="cuda", dtype=torch.bfloat16)
+    placed = _placed(plain, cfg, mesh)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(4))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = (torch.randn((B, cfg.n_heads, S, cfg.d_head), generator=gen, device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    with torch.no_grad(), use_mesh(mesh):
+        compare("parallel ring vs flash attention core (llama-7b layer shape)",
+                ring_attention(q, k, v, axis="sp"), flash_attention(q, k, v), TOL["bf16"])
+    with torch.no_grad():
+        want = forward(plain, tokens, cfg)
+        exact = forward({k: w.float() for k, w in plain.items()}, tokens,
+                        dataclasses.replace(cfg, dtype=torch.float32))
+        got, runs = {}, {}
+        for impl in ("ulysses", "ring"):
+            with counted(counts) as runs[impl]:
+                got[impl] = forward(placed, tokens, dataclasses.replace(cfg, attn_impl=impl), mesh=mesh).full_tensor()
+    torch.cuda.synchronize()
+    same = torch.equal(got["ulysses"], want)
+    err = {name: (t.float() - exact).abs().max().item() for name, t in (("flash", want), ("ring", got["ring"]))}
+    log(f"parallel context parallelism llama-7b widths L=2 B={B} S={S} bf16, sp=1: Ulysses equals the flash "
+        f"forward bit for bit: {same} (max |d| {(got['ulysses'].float() - want.float()).abs().max().item():.3e}); "
+        f"max |logit - f32 model|: flash {err['flash']:.3e}, ring {err['ring']:.3e}; ring vs flash max |d| "
+        f"{(got['ring'].float() - want.float()).abs().max().item():.3e}; launches {runs}")
+    L = cfg.n_layers
+    if runs["ulysses"]["flash_fwd"] != L or any(r["rmsnorm"] <= 0 for r in runs.values()):
+        raise AssertionError(f"parallel: launches {runs}, want {L} flash forwards in Ulysses and RMSNorm in both")
+    if not same:
+        raise AssertionError("parallel: Ulysses at sp=1 differs from the flash forward")
+    if err["ring"] > 1.5 * err["flash"]:
+        raise AssertionError(f"parallel: ring's logits are {err['ring']:.3e} from the f32 model's, more than "
+                             f"1.5x the flash forward's {err['flash']:.3e}")
+    del plain, placed
+    torch.cuda.empty_cache()
+
+
+def phase_parallel(launches: dict) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import make_mesh
+
+    _one_rank_nccl_world()
+    try:
+        mesh = make_mesh()
+        log(f"parallel: backend {dist.get_backend()}, world size {dist.get_world_size()}, mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} on {mesh.device_type}")
+        counts: dict = {}  # the launches of the mesh runs only
+        _moe_train(mesh, counts)
+        _moe_parity(mesh, counts)
+        _sharded_step(mesh, counts)
+        _context_parallel(mesh, counts)
+        launches["parallel"] = counts
+        log(f"parallel launches (the mesh runs) {counts}")
+    finally:
+        dist.destroy_process_group()
 
 
 # --------------------------------------------------------- generate/engine
@@ -1805,6 +2091,8 @@ def main(argv=None) -> int:
         phase_train_parity(launches)
     if "train" in phases:
         phase_train(launches)
+    if "parallel" in phases:
+        phase_parallel(launches)
     generated = served = None
     if "generate" in phases or "engine" in phases:
         cfg, params = _llama_params()

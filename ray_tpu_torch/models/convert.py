@@ -2,8 +2,8 @@
 
 `ray_tpu/models/gpt.py` keeps params as a dict of stacked `[L, ...]` arrays
 (keys and layouts at its `init_params`); the port keeps the same keys and
-layouts as torch tensors, so conversion is a per-array copy onto the
-device. This is how tests and `chip_smoke.py` give both packages the same
+layouts as torch tensors (a MoE config's `moe_*` experts included), so
+conversion is a per-array copy onto the device. This is how tests and `chip_smoke.py` give both packages the same
 weights.
 """
 
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, resolve_dtype
-from .gpt import GPTConfig
+from .gpt import GPTConfig, param_logical_dims
 
 
 def params_from_jax(np_params: Dict[str, np.ndarray], cfg: GPTConfig, device=None,
@@ -25,9 +25,7 @@ def params_from_jax(np_params: Dict[str, np.ndarray], cfg: GPTConfig, device=Non
     with bfloat16 arrays widened exactly to float32)."""
     dev = resolve_device(device)
     dt = resolve_dtype(dtype) if dtype is not None else None
-    expected = {"tok_embed", "ln_f_w", "ln_f_b", "w_qkv", "b_qkv", "w_o", "b_o", "ln1_w", "ln1_b",
-                "w_in", "b_in", "w_out", "b_out"}
-    missing = expected - set(np_params)
+    missing = set(param_logical_dims(cfg)) - set(np_params)
     if missing:
         raise KeyError(f"params lack {sorted(missing)}")
     L = cfg.n_layers

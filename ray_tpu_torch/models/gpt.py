@@ -12,7 +12,34 @@ computes in `cfg.dtype`, as the reference does.
 Training: attention runs the flash kernels forward and backward, every
 RMSNorm the RMSNorm kernel, through autograd (`ops/attention.py`,
 `ops/norms.py`); `cfg.remat` checkpoints each block with
-`torch.utils.checkpoint` under the policy `_remat_policy` picks.
+`torch.utils.checkpoint` under the policy `_remat_policy` picks. A MoE
+config (`mlp_type="moe"`) replaces each MLP with `ops/moe.py`'s layer and
+adds its aux loss to the loss.
+
+Parallelism, in the reference's two modes. `mesh=None`: plain, or inside a
+caller's `parallel.shard_fn` (manual SPMD: ring/Ulysses attention talk over
+`cfg.sp_axis`, `global_positions` offsets each sequence shard). `mesh`
+given (automatic, the reference's pjit mode): params are DTensors placed by
+`param_shardings`, and the step is one per-rank program under `shard_fn`
+(`_on_mesh`) on each param's local shard:
+  * fsdp: a weight's embed dim is gathered where it is used, a layer's
+    inside its (checkpointed) block, and the gather's transpose
+    reduce-scatters the gradient back onto the fsdp shards (ZeRO-3);
+  * tp: heads, the MLP's hidden dim and the vocab stay split (Megatron):
+    each rank projects its own heads and hidden units, a psum over tp ends
+    the attention output and MLP products, the token embedding looks up
+    the rank's vocab rows and psums them, and the LM head and the
+    cross-entropy work on the rank's vocab slice;
+  * dp × fsdp split the batch; for ring/Ulysses attention sp splits the
+    sequence through the whole model;
+  * ep: each rank holds its experts, and a MoE layer routes as if
+    unsharded (`ops/moe.py`);
+  * the loss is the mean over every rank's tokens, and each gradient comes
+    back in its param's placement.
+DTensor only places the params and carries their shards: its sharding
+propagation on the model's ops costs minutes per op on a 3-dim mesh with
+the batch split over two of its dims, and refuses the qkv einsum with heads
+split over tp (PERF.md).
 
 Two serving paths:
   * dense KV cache: `prefill` + `decode_step`, driven by `make_generate`;
@@ -29,10 +56,11 @@ buffers to each call, so nothing can observe the old contents either way.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +73,8 @@ from torch.utils.checkpoint import (
 
 from ..device import resolve_device, resolve_dtype
 from ..ops import attention_reference, flash_attention, layernorm, rmsnorm, rope_frequencies, rope_rotate
+from ..ops.attention import ring_attention, ulysses_attention
+from ..parallel.mesh import P, ShardingRules, axes_of, bound_mesh, use_mesh
 
 _NEG_INF = -1e30
 
@@ -65,7 +95,7 @@ class GPTConfig:
     rotary_dim: int = 64
     parallel_block: bool = False     # GPT-J: attn and mlp in parallel
     tie_embeddings: bool = True
-    # Mixture-of-Experts: accepted for config parity; not ported yet.
+    # Mixture-of-Experts (expert parallelism over the ep mesh axis).
     mlp_type: str = "dense"          # dense | moe
     moe_experts: int = 8
     moe_top_k: int = 2
@@ -73,7 +103,7 @@ class GPTConfig:
     moe_aux_weight: float = 0.01
     # Execution knobs.
     dtype: Any = torch.bfloat16
-    attn_impl: str = "flash"         # flash | ref (ring | ulysses: not ported)
+    attn_impl: str = "flash"         # flash | ring | ulysses | ref
     remat: bool = True
     # None (save nothing) | "dots" (save matmul outputs) | "attn" (save the
     # flash forward's outputs, so backward never re-runs it).
@@ -82,6 +112,21 @@ class GPTConfig:
 
     def __post_init__(self):
         object.__setattr__(self, "dtype", resolve_dtype(self.dtype))
+
+    @property
+    def moe_config(self):
+        from ..ops.moe import MoEConfig
+
+        return MoEConfig(
+            num_experts=self.moe_experts,
+            top_k=self.moe_top_k,
+            capacity_factor=self.moe_capacity_factor,
+            d_model=self.d_model,
+            d_ff=self.d_mlp,
+            aux_loss_weight=self.moe_aux_weight,
+            activation=self.activation,
+            dtype=self.dtype,
+        )
 
     @property
     def n_params(self) -> int:
@@ -145,14 +190,48 @@ CONFIGS = {
 
 
 # ------------------------------------------------------------------- params
+def param_logical_dims(cfg: GPTConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical dims per parameter — feed through ShardingRules for shardings."""
+    dims = {
+        "tok_embed": ("vocab", "embed"),
+        "ln_f_w": ("embed_act",),
+        "ln_f_b": ("embed_act",),
+        "w_qkv": ("layers", "embed", None, "heads", "head_dim"),
+        "b_qkv": ("layers", None, "heads", "head_dim"),
+        "w_o": ("layers", "heads", "head_dim", "embed"),
+        "b_o": ("layers", "embed_act"),
+        "ln1_w": ("layers", "embed_act"),
+        "ln1_b": ("layers", "embed_act"),
+    }
+    if cfg.mlp_type == "moe":
+        dims["moe_router"] = ("layers", "embed", "experts")
+        dims["moe_w_in"] = ("layers", "experts", "embed", "mlp")
+        dims["moe_w_out"] = ("layers", "experts", "mlp", "embed")
+        if cfg.activation == "swiglu":
+            dims["moe_w_gate"] = ("layers", "experts", "embed", "mlp")
+    else:
+        dims["w_in"] = ("layers", "embed", "mlp")
+        dims["b_in"] = ("layers", "mlp_act")
+        dims["w_out"] = ("layers", "mlp", "embed")
+        dims["b_out"] = ("layers", "embed_act")
+        if cfg.activation == "swiglu":
+            dims["w_gate"] = ("layers", "embed", "mlp")
+    if not cfg.parallel_block:
+        dims["ln2_w"] = ("layers", "embed_act")
+        dims["ln2_b"] = ("layers", "embed_act")
+    if cfg.pos == "learned":
+        dims["pos_embed"] = (None, "embed")
+    if not cfg.tie_embeddings:
+        dims["lm_head"] = ("embed", "vocab")
+    return dims
+
+
 def init_params(cfg: GPTConfig, seed: Union[int, torch.Generator] = 0, device=None,
                 dtype: Any = torch.float32) -> Dict[str, torch.Tensor]:
     """Random params with the reference's distributions (normal, std 0.02;
     residual projections std 0.02/sqrt(2L); norms one, biases zero) from a
     seeded `torch.Generator`, made directly on `device` in `dtype` (the
     reference's master params are f32; serving stores cfg.dtype)."""
-    if cfg.mlp_type == "moe":
-        raise NotImplementedError("MoE is not ported yet (see ROADMAP.md)")
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
     gen = seed if isinstance(seed, torch.Generator) else torch.Generator(device=dev).manual_seed(seed)
@@ -180,13 +259,21 @@ def init_params(cfg: GPTConfig, seed: Union[int, torch.Generator] = 0, device=No
         "b_o": zeros((L, E)),
         "ln1_w": ones((L, E)),
         "ln1_b": zeros((L, E)),
-        "w_in": n((L, E, F_)),
-        "b_in": zeros((L, F_)),
-        "w_out": n((L, F_, E), resid_std),
-        "b_out": zeros((L, E)),
     }
-    if cfg.activation == "swiglu":
-        params["w_gate"] = n((L, E, F_))
+    if cfg.mlp_type == "moe":
+        X = cfg.moe_experts
+        params["moe_router"] = n((L, E, X))
+        params["moe_w_in"] = n((L, X, E, F_))
+        params["moe_w_out"] = n((L, X, F_, E), resid_std)
+        if cfg.activation == "swiglu":
+            params["moe_w_gate"] = n((L, X, E, F_))
+    else:
+        params["w_in"] = n((L, E, F_))
+        params["b_in"] = zeros((L, F_))
+        params["w_out"] = n((L, F_, E), resid_std)
+        params["b_out"] = zeros((L, E))
+        if cfg.activation == "swiglu":
+            params["w_gate"] = n((L, E, F_))
     if not cfg.parallel_block:
         params["ln2_w"] = ones((L, E))
         params["ln2_b"] = zeros((L, E))
@@ -197,20 +284,34 @@ def init_params(cfg: GPTConfig, seed: Union[int, torch.Generator] = 0, device=No
     return params
 
 
+def param_shardings(cfg: GPTConfig, mesh, rules: Optional[ShardingRules] = None):
+    """name -> DTensor placements (one per mesh dim) of each param; place a
+    param with `parallel.place(params[name], mesh, shardings[name])`."""
+    rules = rules or ShardingRules.default()
+    return {name: rules.placements(mesh, *d) for name, d in param_logical_dims(cfg).items()}
+
+
 _LAYER_KEYS = (
     "w_qkv", "b_qkv", "w_o", "b_o", "w_in", "b_in", "w_out", "b_out",
     "ln1_w", "ln1_b", "ln2_w", "ln2_b", "w_gate",
+    "moe_router", "moe_w_in", "moe_w_out", "moe_w_gate",
 )
+
+
+def _cast_layer(layer, cfg: GPTConfig) -> Dict[str, torch.Tensor]:
+    """A layer's weights in the compute dtype; the MoE router stays in its
+    master dtype (router math is f32)."""
+    return {k: (w if k == "moe_router" else w.to(cfg.dtype)) for k, w in layer.items()}
 
 
 def _layer(params, cfg: GPTConfig, i: int) -> Dict[str, torch.Tensor]:
     """Layer i's weights cast to the compute dtype."""
-    return {k: params[k][i].to(cfg.dtype) for k in _LAYER_KEYS if k in params}
+    return _cast_layer({k: params[k][i] for k in _LAYER_KEYS if k in params}, cfg)
 
 
-def _check_dense(cfg: GPTConfig) -> None:
+def _refuse_moe(cfg: GPTConfig, what: str) -> None:
     if cfg.mlp_type == "moe":
-        raise NotImplementedError("MoE is not ported yet (see ROADMAP.md)")
+        raise NotImplementedError(f"{what} does not support MoE yet")
 
 
 # ------------------------------------------------------------------ forward
@@ -221,13 +322,26 @@ def _norm(x, w, b, kind: str):
 
 
 def _attention(cfg: GPTConfig, q, k, v):
+    """Causal attention on the heads and positions q, k, v hold. Ring and
+    Ulysses hold a sequence chunk and talk over `cfg.sp_axis` of the bound
+    mesh (a caller's shard_fn, or `_on_mesh`'s, where q, k, v also hold only
+    this rank's heads)."""
     if cfg.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} (context parallelism) is not ported yet; "
-            "see ROADMAP.md queue 1, multi-GPU")
+        impl = ring_attention if cfg.attn_impl == "ring" else ulysses_attention
+        return impl(q, k, v, axis=cfg.sp_axis, causal=True)
     if cfg.attn_impl == "ref":
         return attention_reference(q, k, v, causal=True)
     return flash_attention(q, k, v, causal=True)
+
+
+def _own_chunk(t, axis: str, dim: int):
+    """This rank's chunk of t along dim, split evenly over `axis`."""
+    from ..collective.ops import axis_index, axis_size
+
+    n = axis_size(axis)
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of size {t.shape[dim]} does not split over {axis}={n}")
+    return t.chunk(n, dim)[axis_index(axis)]
 
 
 def _table_rows(cfg: GPTConfig, positions):
@@ -260,91 +374,242 @@ def _rope(cfg: GPTConfig, x, c, s):
 
 
 def _qkv(cfg: GPTConfig, h, p):
-    """h [B, S, E] -> q, k, v [B, H, S, Dh] (qkv weight layout [E, 3, H, Dh])."""
+    """h [B, S, E] -> q, k, v [B, H, S, Dh] (qkv weight layout [E, 3, H, Dh];
+    H the heads the weight holds)."""
     B, S, E = h.shape
-    H, Dh = cfg.n_heads, cfg.d_head
-    qkv = (h @ p["w_qkv"].reshape(E, 3 * H * Dh)).view(B, S, 3, H, Dh) + p["b_qkv"]
+    w = p["w_qkv"]
+    qkv = (h @ w.reshape(E, -1)).view(B, S, *w.shape[1:]) + p["b_qkv"]
     return (qkv[:, :, i].transpose(1, 2) for i in range(3))
 
 
-def _attn_out(cfg: GPTConfig, attn, p):
+def _tp_sum(y, auto: bool):
+    """A product over this rank's heads or hidden units summed over tp
+    (automatic mode; a no-op at tp=1)."""
+    if not auto:
+        return y
+    from ..collective.ops import psum
+
+    return psum(y, "tp")
+
+
+def _attn_out(cfg: GPTConfig, attn, p, auto: bool = False):
     """attn [B, H, S, Dh] -> [B, S, E]."""
     B, H, S, Dh = attn.shape
-    return attn.transpose(1, 2).reshape(B, S, H * Dh) @ p["w_o"].reshape(H * Dh, -1) + p["b_o"]
+    return _tp_sum(attn.transpose(1, 2).reshape(B, S, H * Dh) @ p["w_o"].reshape(H * Dh, -1), auto) + p["b_o"]
 
 
-def _mlp_residual(cfg: GPTConfig, x, h, attn_out, p):
-    """The block's second half: residual add, MLP, residual add."""
+def _moe(cfg: GPTConfig, p, x, auto: bool):
+    """The MoE layer on x [B, S, E]: (out, aux). Automatic mode routes the
+    tokens of every batch rank as one batch, over each sequence whole (the
+    reference's token order), on this rank's experts (ep) and hidden units
+    (tp)."""
+    from ..ops.moe import moe_forward
+
+    moe_params = {"w_router": p["moe_router"], "w_in": p["moe_w_in"], "w_out": p["moe_w_out"]}
+    if cfg.activation == "swiglu":
+        moe_params["w_gate"] = p["moe_w_gate"]
+    if not auto:
+        return moe_forward(moe_params, x, cfg.moe_config)
+    from ..collective.ops import all_gather
+
+    cp = cfg.attn_impl in ("ring", "ulysses")
+    if cp:
+        x = all_gather(x, cfg.sp_axis, gather_axis=1)
+    y, aux = moe_forward(moe_params, x, cfg.moe_config, token_axis=_rules_spec("batch")[0],
+                         expert_axis=_rules_spec("experts")[0])
+    y = _tp_sum(y, auto)
+    return (_own_chunk(y, cfg.sp_axis, 1) if cp else y), aux
+
+
+def _mlp_residual(cfg: GPTConfig, x, h, attn_out, p, auto: bool = False):
+    """The block's second half: residual add, MLP (or MoE layer), residual
+    add. Returns (out, MoE aux loss or None)."""
     if cfg.parallel_block:
         mlp_in = h  # GPT-J: the same normed input feeds attn and mlp
     else:
         x = x + attn_out
         mlp_in = _norm(x, p["ln2_w"], p["ln2_b"], cfg.norm)
-    u = mlp_in @ p["w_in"] + p["b_in"]
-    if cfg.activation == "swiglu":
-        u = F.silu(mlp_in @ p["w_gate"]) * u
+    aux = None
+    if cfg.mlp_type == "moe":
+        mlp_out, aux = _moe(cfg, p, mlp_in, auto)
     else:
-        u = F.gelu(u, approximate="tanh")  # jax.nn.gelu defaults to the tanh form
-    mlp_out = u @ p["w_out"] + p["b_out"]
-    return x + attn_out + mlp_out if cfg.parallel_block else x + mlp_out
+        u = mlp_in @ p["w_in"] + p["b_in"]
+        if cfg.activation == "swiglu":
+            u = F.silu(mlp_in @ p["w_gate"]) * u
+        else:
+            u = F.gelu(u, approximate="tanh")  # jax.nn.gelu defaults to the tanh form
+        mlp_out = _tp_sum(u @ p["w_out"], auto) + p["b_out"]
+    return (x + attn_out + mlp_out if cfg.parallel_block else x + mlp_out), aux
 
 
-def _block(cfg: GPTConfig, rope_tables, x, p, positions):
+def _block(cfg: GPTConfig, rope_tables, x, p, positions, auto: bool = False):
     """One transformer block over a whole sequence; x: [B, S, E] in
-    cfg.dtype. Returns (out, k, v) with the post-RoPE K/V [B, H, S, Dh]."""
+    cfg.dtype. Returns (out, MoE aux loss or None, k, v) with the post-RoPE
+    K/V [B, H, S, Dh]."""
     h = _norm(x, p["ln1_w"], p["ln1_b"], cfg.norm)
     q, k, v = _qkv(cfg, h, p)
     if cfg.pos == "rotary":
         c, s = _rope_cs(cfg, rope_tables, positions)
         q, k = _rope(cfg, q, c, s), _rope(cfg, k, c, s)
     attn = _attention(cfg, q, k, v)
-    return _mlp_residual(cfg, x, h, _attn_out(cfg, attn, p), p), k, v
+    out, aux = _mlp_residual(cfg, x, h, _attn_out(cfg, attn, p, auto), p, auto)
+    return out, aux, k, v
 
 
-def _embed(params, tokens, cfg: GPTConfig, positions):
-    x = params["tok_embed"][tokens].to(cfg.dtype)
+def _vocab_slice(ids, n_local: int):
+    """ids relative to this tp rank's slice of the vocab (automatic mode:
+    n_local rows per rank), clamped into it, and whether each id lies in it."""
+    from ..collective.ops import axis_index
+
+    local = ids - axis_index("tp") * n_local
+    return local.clamp(0, n_local - 1), (local >= 0) & (local < n_local)
+
+
+def _embed(params, tokens, cfg: GPTConfig, positions, auto: bool = False):
+    table = params["tok_embed"]
+    if auto:  # this rank's vocab rows, the rest zero, summed over tp
+        rows, hit = _vocab_slice(tokens, table.shape[0])
+        x = _tp_sum(torch.where(hit[..., None], table[rows], 0), auto).to(cfg.dtype)
+    else:
+        x = table[tokens].to(cfg.dtype)
     if cfg.pos == "learned":
         x = x + params["pos_embed"][_table_rows(cfg, positions)].to(cfg.dtype)
     return x
 
 
 def _logits(params, x, cfg: GPTConfig):
-    """Final norm (weight as stored) and LM head, in cfg.dtype."""
+    """Final norm (weight as stored) and LM head, in cfg.dtype (automatic
+    mode: this rank's slice of the vocab)."""
     x = _norm(x, params["ln_f_w"], params["ln_f_b"], cfg.norm)
     head = params["tok_embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head.to(cfg.dtype)
 
 
-def _remat_block(cfg: GPTConfig, rope_tables, layer, x, positions):
+def _remat_block(cfg: GPTConfig, rope_tables, mesh, auto: bool, layer, x, positions):
     """A block on x with `layer`'s master weights, cast inside (so remat
-    recomputes the cast, as the reference's checkpointed block does)."""
-    p = {k: w.to(cfg.dtype) for k, w in layer.items()}
-    return _block(cfg, rope_tables, x, p, positions)[0]
+    recomputes the cast, as the reference's checkpointed block does):
+    (out, MoE aux loss or None). Automatic mode gathers the layer's fsdp
+    shards here too, so a checkpointed block frees them after its forward
+    and gathers them again for its recompute. `mesh` (the bound one, or
+    None) is bound again here: a recompute in the backward runs outside the
+    caller's shard_fn."""
+    with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        if auto:
+            dims = param_logical_dims(cfg)
+            layer = {k: _whole(w, dims[k][1:], keep=() if k == "moe_router" else _KEPT_AXES)
+                     for k, w in layer.items()}
+        return _block(cfg, rope_tables, x, _cast_layer(layer, cfg), positions, auto)[:2]
 
 
-def forward(params, tokens, cfg: GPTConfig, positions=None):
-    """tokens [B, S] (long) -> logits [B, S, V] in cfg.dtype. With
-    `cfg.remat` and grad enabled, each block is checkpointed under
-    `_remat_policy(cfg)`."""
-    _check_dense(cfg)
+def global_positions(cfg: GPTConfig, local_seq: int, device=None):
+    """Global token positions for this shard (manual-SPMD mode only). Under
+    a whole-model shard_fn the function body sees only the LOCAL sequence
+    chunk — positions must be offset by this rank's sp-axis index or
+    RoPE/learned-pos phases are wrong on every shard but the first."""
+    pos = torch.arange(local_seq, device=device)
+    if cfg.attn_impl in ("ring", "ulysses"):
+        from ..collective.ops import axis_index
+
+        return axis_index(cfg.sp_axis) * local_seq + pos
+    return pos
+
+
+def forward(params, tokens, cfg: GPTConfig, positions=None, mesh=None, return_aux=False):
+    """tokens [B, S] (long) -> logits [B, S, V] in cfg.dtype (or (logits,
+    MoE aux loss) with return_aux=True). With `cfg.remat` and grad enabled,
+    each block is checkpointed under `_remat_policy(cfg)`.
+
+    mesh=None → plain, or a caller-managed shard_fn (manual SPMD).
+    mesh given → automatic: params are DTensors on it (`param_shardings`),
+    tokens (plain: the global batch, the same on every rank) are split over
+    the "batch" axes, and the logits come back as a DTensor split so."""
+    if mesh is None:
+        return _forward(params, tokens, cfg, positions, return_aux=return_aux)
+    tokens_spec = _token_spec(cfg)
+
+    def body(p, t):
+        return _forward(p, t, cfg, positions, return_aux=return_aux, auto=True)
+
+    logits_spec = P(*tokens_spec, _rules_spec("vocab")[0])
+    out_specs = (logits_spec, P()) if return_aux else logits_spec
+    return _on_mesh(mesh, cfg, params, body, (tokens_spec,), out_specs)(params, tokens)
+
+
+def _rules_spec(*dims):
+    return ShardingRules.default().spec(*dims)
+
+
+# Automatic mode: the axes a weight stays split over where it is used (heads,
+# hidden units and vocab over tp, experts over ep); its other axes (fsdp) are
+# gathered there.
+_KEPT_AXES = ("tp", "ep")
+
+
+def _token_spec(cfg: GPTConfig):
+    """Tokens [B, S] in automatic mode: the batch over the "batch" axes and,
+    for ring/Ulysses attention, the sequence over `cfg.sp_axis`."""
+    cp = cfg.attn_impl in ("ring", "ulysses")
+    return P(_rules_spec("batch")[0], cfg.sp_axis if cp else None)
+
+
+def _whole(t, dims, keep=()):
+    """A local shard `t` of a param laid out by the default rules over the
+    logical `dims`, gathered over every mesh axis but `keep`."""
+    from ..collective.ops import all_gather
+
+    for i, entry in enumerate(_rules_spec(*dims)):
+        for axis in reversed(axes_of(entry)):  # minor axis first
+            if axis not in keep:
+                t = all_gather(t, axis, gather_axis=i)
+    return t
+
+
+def _on_mesh(mesh, cfg: GPTConfig, params, body, arg_specs, out_specs):
+    """`body(params, *args)` as one per-rank program over `mesh` (automatic
+    mode), on each param's local shard under the default rules."""
+    from ..parallel.spmd import shard_fn
+
+    dims = param_logical_dims(cfg)
+    param_specs = {k: _rules_spec(*dims[k]) for k in params}
+    return shard_fn(body, mesh, (param_specs, *arg_specs), out_specs)
+
+
+_OUTER_KEYS = ("tok_embed", "pos_embed", "lm_head", "ln_f_w", "ln_f_b")
+
+
+def _forward(params, tokens, cfg: GPTConfig, positions=None, return_aux=False, auto=False):
+    """The forward on this rank's tokens; auto=True inside `_on_mesh`
+    (params are local shards under the default rules)."""
     B, S = tokens.shape
     if positions is None:
-        positions = torch.arange(S, device=tokens.device)
-    x = _embed(params, tokens, cfg, positions)
+        positions = global_positions(cfg, S, tokens.device)
+    outer = {k: params[k] for k in _OUTER_KEYS if k in params}
+    if auto:
+        dims = param_logical_dims(cfg)
+        outer = {k: _whole(w, dims[k], keep=_KEPT_AXES) for k, w in outer.items()}
+    x = _embed(outer, tokens, cfg, positions, auto)
     rope_tables = _rope_tables(cfg, tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
     context_fn = _remat_policy(cfg) if remat else None
     # unbind, not params[k][i]: its backward stacks the L layer gradients
     # once, where indexing would add a zero-padded [L, ...] gradient per layer.
     stacks = {k: params[k].unbind(0) for k in _LAYER_KEYS if k in params}
+    mesh = bound_mesh()
+    auxes = []
     for i in range(cfg.n_layers):
         layer = {k: ws[i] for k, ws in stacks.items()}
         if remat:
-            x = checkpoint(_remat_block, cfg, rope_tables, layer, x, positions,
-                           use_reentrant=False, context_fn=context_fn)
+            x, aux = checkpoint(_remat_block, cfg, rope_tables, mesh, auto, layer, x, positions,
+                                use_reentrant=False, context_fn=context_fn)
         else:
-            x = _remat_block(cfg, rope_tables, layer, x, positions)
-    return _logits(params, x, cfg)
+            x, aux = _remat_block(cfg, rope_tables, mesh, auto, layer, x, positions)
+        auxes.append(aux)
+    logits = _logits(outer, x, cfg)
+    if not return_aux:
+        return logits
+    if cfg.mlp_type != "moe":
+        return logits, torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return logits, functools.reduce(torch.add, auxes)
 
 
 # Ops whose outputs a selective-checkpoint policy saves. "dots" follows the
@@ -390,6 +655,22 @@ def _parse_batch(batch):
     return tokens[:, :-1], tokens[:, 1:], (mask[:, 1:] if mask is not None else None)
 
 
+def _vocab_log_likelihood(logits, targets):
+    """log p(target) in f32 from logits whose vocab is split over tp (the
+    automatic mode's LM head): this rank's slice of the softmax sums, its
+    target logits, each summed over tp. At tp=1, `log_softmax` itself."""
+    from ..collective.ops import axis_size, pmax, psum
+
+    z = logits.float()
+    if axis_size("tp") == 1:
+        return torch.log_softmax(z, dim=-1).gather(-1, targets.long()[..., None])[..., 0]
+    top = pmax(z.detach().amax(dim=-1), "tp")
+    lse = torch.log(psum(torch.exp(z - top[..., None]).sum(dim=-1), "tp")) + top
+    rows, hit = _vocab_slice(targets.long(), z.shape[-1])
+    picked = torch.where(hit, z.gather(-1, rows[..., None])[..., 0], 0)
+    return psum(picked, "tp") - lse
+
+
 def _ce_loss(logits, targets, mask):
     """Mean next-token cross-entropy (f32), optionally padding-masked."""
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -400,12 +681,31 @@ def _ce_loss(logits, targets, mask):
     return -ll.mean()
 
 
-def loss_fn(params, batch, cfg: GPTConfig):
+def loss_fn(params, batch, cfg: GPTConfig, mesh=None):
     """batch: {"tokens": [B, S+1]} or {"inputs", "targets"[, "mask"]} ->
-    mean next-token cross-entropy (f32). The reference adds the MoE aux
-    loss, which is 0 for the dense configs (MoE is not ported)."""
+    mean next-token cross-entropy (f32) + MoE aux (a MoE config only: the
+    reference adds 0 for a dense one). With `mesh` the batch (plain: the
+    global batch, the same on every rank) is split as `forward` splits it,
+    the mean is taken over every rank's tokens, and the loss is a
+    replicated DTensor."""
     inputs, targets, mask = _parse_batch(batch)
-    return _ce_loss(forward(params, inputs, cfg), targets, mask)
+    if mesh is None:
+        logits, aux = forward(params, inputs, cfg, return_aux=True)
+        loss = _ce_loss(logits, targets, mask)
+        return loss + aux if cfg.mlp_type == "moe" else loss
+    spec = _token_spec(cfg)
+    token_axes = tuple(a for entry in spec for a in axes_of(entry))
+
+    def body(p, inputs, targets, mask):
+        from ..collective.ops import psum
+
+        logits, aux = _forward(p, inputs, cfg, return_aux=True, auto=True)
+        ll = _vocab_log_likelihood(logits, targets)
+        m = torch.ones_like(ll) if mask is None else mask.float()
+        loss = -psum((ll * m).sum(), token_axes) / psum(m.sum(), token_axes).clamp_min(1.0)
+        return loss + aux if cfg.mlp_type == "moe" else loss
+
+    return _on_mesh(mesh, cfg, params, body, (spec, spec, spec), P())(params, inputs, targets, mask)
 
 
 def optax_global_norm(tensors):
@@ -413,22 +713,26 @@ def optax_global_norm(tensors):
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
-def make_train_step(cfg: GPTConfig, optimizer) -> Callable:
+def make_train_step(cfg: GPTConfig, optimizer, mesh=None) -> Callable:
     """Returns `step(params, batch) -> (params, metrics)` with metrics
     {"loss", "grad_norm"} (0-dim f32 tensors; reading them synchronizes).
     `optimizer` is a torch optimizer over `params.values()` (the port's
     `optim.AdamW` for the reference's optax.adamw). The params are updated
-    IN PLACE: the reference donates its state to the step."""
+    IN PLACE: the reference donates its state to the step. With `mesh` the
+    params are DTensors placed by `param_shardings` (each gradient comes
+    back in its param's placement, and AdamW updates each rank's shard)."""
 
     def step(params, batch):
         for p in params.values():
             p.requires_grad_(True)
             p.grad = None
-        loss = loss_fn(params, batch, cfg)
-        loss.backward()
+        value = loss_fn(params, batch, cfg, mesh)
+        value.backward()
         gnorm = optax_global_norm(p.grad for p in params.values() if p.grad is not None)
         optimizer.step()
-        return params, {"loss": loss.detach(), "grad_norm": gnorm.detach()}
+        if mesh is not None:
+            value, gnorm = value.full_tensor(), gnorm.full_tensor()
+        return params, {"loss": value.detach(), "grad_norm": gnorm.detach()}
 
     return step
 
@@ -451,13 +755,12 @@ def init_cache(cfg: GPTConfig, batch: int, max_seq: Optional[int] = None, device
 def prefill(params, tokens, cfg: GPTConfig, cache):
     """Run the prompt [B, S0] through the model, filling cache[:, :, :, :S0]
     in place. Returns (last-position logits [B, V] f32, cache)."""
-    _check_dense(cfg)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)
     x = _embed(params, tokens, cfg, positions)
     rope_tables = _rope_tables(cfg, tokens.device)
     for i in range(cfg.n_layers):
-        x, k, v = _block(cfg, rope_tables, x, _layer(params, cfg, i), positions)
+        x, _, k, v = _block(cfg, rope_tables, x, _layer(params, cfg, i), positions)
         cache["k"][i, :, :, :S] = k
         cache["v"][i, :, :, :S] = v
     cache["len"] = S
@@ -476,7 +779,7 @@ def _masked_softmax_attention(q, k, v, visible, scale: float):
 def decode_step(params, token, cache, cfg: GPTConfig):
     """One step: token [B] -> (logits [B, V] f32, cache). Attention is a
     plain masked dot against the cache (one query: flash brings nothing)."""
-    _check_dense(cfg)
+    _refuse_moe(cfg, "decode_step")
     pos = cache["len"]
     M = cache["k"].shape[3]
     if pos >= M:
@@ -497,7 +800,7 @@ def decode_step(params, token, cache, cfg: GPTConfig):
         ck[:, :, pos:pos + 1] = k
         cv[:, :, pos:pos + 1] = v
         attn = _masked_softmax_attention(q, ck, cv, visible, scale)
-        x = _mlp_residual(cfg, x, h, _attn_out(cfg, attn, p), p)
+        x = _mlp_residual(cfg, x, h, _attn_out(cfg, attn, p), p)[0]
     cache["len"] = pos + 1
     return _logits(params, x[:, -1], cfg).float(), cache
 
@@ -572,7 +875,7 @@ def prefill_paged(params, tokens, real_len: int, pos_offset: int, block_table, k
     padded positions go to the null block. Returns (next-token logits [V]
     f32 at position pos_offset + real_len - 1, kv); only meaningful on the
     final chunk of a prompt."""
-    _check_dense(cfg)
+    _refuse_moe(cfg, "paged decode")
     dev = tokens.device
     _, Sp = tokens.shape
     BS = kv["k"].shape[3]
@@ -601,7 +904,7 @@ def prefill_paged(params, tokens, real_len: int, pos_offset: int, block_table, k
         vv[phys, :, off] = v[0].transpose(0, 1)
         attn = _masked_softmax_attention(q[0], _gather(kk, block_table), _gather(vv, block_table),
                                          visible, scale)
-        x = _mlp_residual(cfg, x, h, _attn_out(cfg, attn[None], p), p)
+        x = _mlp_residual(cfg, x, h, _attn_out(cfg, attn[None], p), p)[0]
     h = x[:, max(real_len - 1, 0)]  # [1, E]: last real chunk position
     return _logits(params, h, cfg)[0].float(), kv
 
@@ -612,7 +915,7 @@ def decode_step_paged(params, token, positions, block_tables, kv, cfg: GPTConfig
     lane's current token, written at positions[b]), positions [B],
     block_tables [B, W]. Returns (logits [B, V] f32, kv). Padding lanes
     (null-block tables, position 0) give garbage logits the engine drops."""
-    _check_dense(cfg)
+    _refuse_moe(cfg, "paged decode")
     dev = token.device
     BS = kv["k"].shape[3]
     M = block_tables.shape[1] * BS
@@ -633,7 +936,7 @@ def decode_step_paged(params, token, positions, block_tables, kv, cfg: GPTConfig
         vv[phys, :, off] = v[:, :, 0]
         attn = _masked_softmax_attention(q, _gather(kk, block_tables), _gather(vv, block_tables),
                                          visible, scale)
-        x = _mlp_residual(cfg, x, h, _attn_out(cfg, attn, p), p)
+        x = _mlp_residual(cfg, x, h, _attn_out(cfg, attn, p), p)[0]
     return _logits(params, x[:, -1], cfg).float(), kv
 
 
@@ -646,7 +949,7 @@ def verify_step_paged(params, tokens, positions, valid_len, block_tables, kv, cf
     attends to history 0..positions[b]+j, so logits[b, j] equal what
     sequential decode would give after accepting drafts 0..j-1. Returns
     (logits [B, K1, V] f32, kv)."""
-    _check_dense(cfg)
+    _refuse_moe(cfg, "paged decode")
     dev = tokens.device
     B, K1 = tokens.shape
     W = block_tables.shape[1]
@@ -673,5 +976,5 @@ def verify_step_paged(params, tokens, positions, valid_len, block_tables, kv, cf
         vv[phys, :, off] = v.transpose(1, 2)
         attn = _masked_softmax_attention(q, _gather(kk, block_tables), _gather(vv, block_tables),
                                          visible, scale)
-        x = _mlp_residual(cfg, x, h, _attn_out(cfg, attn, p), p)
+        x = _mlp_residual(cfg, x, h, _attn_out(cfg, attn, p), p)[0]
     return _logits(params, x, cfg).float(), kv

@@ -4,8 +4,13 @@ gradient.
 `flash_attention` runs the hand-written CUDA kernels on CUDA tensors
 (`kernels/csrc/flash_fwd.cu` forward, `kernels/csrc/flash_bwd.cu` dQ and
 dK/dV backward) and the plain versions on CPU tensors
-(`flash_attention_plain`, `flash_attention_bwd_plain`). Ring and Ulysses
-context parallelism are not ported yet (see ROADMAP.md).
+(`flash_attention_plain`, `flash_attention_bwd_plain`).
+
+Context parallelism, per rank under `parallel.spmd.shard_fn`:
+`ring_attention` rotates K/V blocks around the sequence axis with
+`collective.ops.ppermute` (f32 softmax statistics, causal masking on
+global positions); `ulysses_attention` swaps the split from sequence to
+heads with `all_to_all` and runs `flash_attention` on full sequences.
 
 When a gradient is wanted the forward runs as one custom op,
 `ray_tpu_torch::flash_attention`, whose outputs are (o, lse) and whose
@@ -178,3 +183,67 @@ def flash_attention_with_stats(q, k, v, causal: bool = True, sm_scale: Optional[
     UNPADDED as (B*H, 1, S) — the reference's off-TPU shape. lse is not
     differentiable: use it for logging, not as a loss term."""
     return _flash(q, k, v, causal, sm_scale, True)
+
+
+# ------------------------------------------------------------ ring attention
+def _chunk_attn(q, k, v, mask, scale):
+    """One K/V chunk's contribution with softmax stats (all f32)."""
+    s = torch.matmul(q, k.float().transpose(-1, -2)) * scale
+    s = s.masked_fill(~mask, _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)  # [B, H, S, 1]
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p, v.float())
+    return o, m, l
+
+
+def ring_attention(q, k, v, axis: str = "sp", causal: bool = True, sm_scale: Optional[float] = None):
+    """Blockwise ring attention over sequence shards (call under shard_fn).
+
+    Per rank: q, k, v are the LOCAL sequence shard [B, H, S_local, D]. Each
+    of the `axis_size` steps attends q against the K/V block currently
+    held, then passes K/V one hop around the ring (`ppermute`). Causal
+    masking uses global positions, so fully-masked steps contribute
+    nothing."""
+    from ..collective.ops import axis_index, axis_size, ppermute
+
+    n = axis_size(axis)
+    my = axis_index(axis)
+    B, H, S_local, D = q.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    qf = q.float()
+    rows = my * S_local + torch.arange(S_local, device=q.device)[:, None]  # global q positions
+    acc = torch.zeros((B, H, S_local, D), dtype=torch.float32, device=q.device)
+    m_prev = torch.full((B, H, S_local, 1), _NEG_INF, dtype=torch.float32, device=q.device)
+    l_prev = torch.zeros((B, H, S_local, 1), dtype=torch.float32, device=q.device)
+    perm = [(d, (d + 1) % n) for d in range(n)]
+    for i in range(n):
+        src = (my - i) % n  # whose K/V block this rank holds at step i
+        cols = src * S_local + torch.arange(S_local, device=q.device)[None, :]
+        mask = (rows >= cols) if causal else torch.ones((S_local, S_local), dtype=torch.bool, device=q.device)
+        o_c, m_c, l_c = _chunk_attn(qf, k, v, mask, scale)
+        m_new = torch.maximum(m_prev, m_c)
+        alpha = torch.exp(m_prev - m_new)
+        beta = torch.exp(m_c - m_new)
+        acc = acc * alpha + o_c * beta
+        l_prev = l_prev * alpha + l_c * beta
+        m_prev = m_new
+        if i + 1 < n:
+            k, v = ppermute(k, axis, perm), ppermute(v, axis, perm)
+    return (acc / l_prev.clamp_min(1e-30)).to(q.dtype)
+
+
+def ulysses_attention(q, k, v, axis: str = "sp", causal: bool = True, sm_scale: Optional[float] = None):
+    """DeepSpeed-Ulysses context parallelism (call under shard_fn).
+
+    Inputs are sequence-sharded [B, H, S_local, D]; `all_to_all` swaps the
+    split from sequence to heads, each rank runs full-sequence flash
+    attention (the kernel on the card) over H/n heads, then swaps back.
+    Requires H % axis_size == 0."""
+    from ..collective.ops import all_to_all
+
+    # [B, H, S/n, D] -> [B, H/n, S, D]
+    q2, k2, v2 = (all_to_all(t, axis, split_axis=1, concat_axis=2) for t in (q, k, v))
+    o2 = flash_attention(q2, k2, v2, causal=causal, sm_scale=sm_scale)
+    # [B, H/n, S, D] -> [B, H, S/n, D]
+    return all_to_all(o2, axis, split_axis=2, concat_axis=1)

@@ -205,7 +205,14 @@ def test_paged_scatter_splits_advanced_indices():
 
 
 def test_ring_and_ulysses_raise():
-    _, tcfg = _configs("llama", attn_impl="ring")
-    q = torch.zeros(1, 3, 4, 16)
-    with pytest.raises(NotImplementedError):
-        tg._attention(tcfg, q, q, q)
+    """Outside shard_fn no mesh axis is bound: the port raises, as the
+    reference does outside shard_map (the sharded paths:
+    tests/test_torch_sharded.py)."""
+    for impl in ("ring", "ulysses"):
+        jcfg, tcfg = _configs("llama", attn_impl=impl)
+        q = torch.zeros(1, 3, 4, 16)
+        with pytest.raises(RuntimeError, match="no mesh is bound"):
+            tg._attention(tcfg, q, q, q)
+        jq = jnp.zeros((1, 3, 4, 16))
+        with pytest.raises(NameError):
+            jg._attention(jcfg, jq, jq, jq)

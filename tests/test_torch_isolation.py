@@ -93,6 +93,9 @@ RUNTIME_COPY = (
     "serve/http_proxy.py", "serve/grpc_proxy.py", "serve/engine/kv_transfer.py", "serve/engine/kv_manager.py",
     "serve/engine/scheduler.py", "serve/engine/kv_tier.py", "serve/engine/spec.py", "serve/engine/deployment.py",
     "serve/engine/engine.py",
+    # The host-plane collective groups over the object store (the in-program
+    # collectives beside them, `collective/ops.py`, are a port).
+    "collective/__init__.py",
 )
 # Port-only files inside the copied directories.
 PORT_ONLY = {"core/devices.py", "core/host_names.py"}
@@ -117,6 +120,7 @@ DIVERGES = {
     "serve/engine/kv_manager.py": "docstring: two lines without the reference's own history",
     "serve/engine/kv_transfer.py": "docstring and a comment without the reference's own history",
     "serve/fleet/autoscale.py": "docstring: a line without the reference's own history",
+    "collective/__init__.py": "docstring: a line without the reference's own history",
     "serve/engine/deployment.py": "dtype by device.resolve_dtype, a device argument",
     "serve/engine/engine.py": "the engine on torch tensors: a port (PORTS)",
 }
@@ -274,6 +278,8 @@ def test_importing_the_port_loads_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.core.controller, ray_tpu_torch.core.worker_main\n"
         "import ray_tpu_torch.serve, ray_tpu_torch.serve.engine.deployment, ray_tpu_torch.serve.fleet\n"
         "import ray_tpu_torch.serve.engine.kv_transfer, ray_tpu_torch.serve.http_proxy\n"
+        "import ray_tpu_torch.parallel, ray_tpu_torch.parallel.spmd, ray_tpu_torch.collective\n"
+        "import ray_tpu_torch.collective.ops, ray_tpu_torch.ops.moe\n"
         "new = set(sys.modules) - before\n"
         f"print(sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}))\n"
     )
