@@ -33,7 +33,22 @@ Phases:
   6. train    bench.py's step: gpt2-large, B=13 x S=1024, bf16 compute, f32
               master weights, remat "attn", AdamW(3e-4, wd 0.1, bf16 mu):
               tokens/s, step ms, MFU, peak memory, launches per step
-  6b. parallel the mesh path on a one-rank NCCL world (make_mesh(), all six
+  6b. trainer training on the copied runtime: ray_tpu_torch.init() in
+              cluster mode, TorchTrainer gangs of one GPU worker over a
+              one-rank NCCL world (torch_utils.get_mesh()): the train
+              phase's step through the trainer, its losses and grad norms
+              bit-equal to an in-process plain run (tokens/s beside it);
+              the GPipe step at llama-7b widths (4 layers, B=8 x S=512,
+              M=4) on the pp=1 mesh, its first loss within 2e-3 of loss_fn
+              and its launches as predicted from M and the layers; the
+              pipeline at llama-7b widths (2 layers, f32) card vs CPU in
+              the driver; and gpt2-large at 4 layers, B=4 x S=1024, 10
+              steps with an elastic checkpoint every 2, its worker
+              SIGKILLed after step 5: the gang restarts on a new worker
+              from the step-4 commit and every loss equals the unkilled
+              run's bit for bit (restart s, checkpoint MB, step ms with and
+              without a save in flight)
+  6c. parallel the mesh path on a one-rank NCCL world (make_mesh(), all six
               axes 1): gpt2-medium-moe (8 experts, top-2) training at full
               width through make_train_step(mesh=) (tokens/s, step ms,
               device busy, peak memory, flash launches); the MoE model at 2
@@ -79,7 +94,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-PHASES = ("device", "build", "kernels", "parity", "train_parity", "train", "parallel", "generate",
+PHASES = ("device", "build", "kernels", "parity", "train_parity", "train", "trainer", "parallel", "generate",
           "engine", "runtime", "serve")
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, SXM
 H100_F32_FLOPS = 67e12     # CUDA-core f32 peak, SXM
@@ -962,14 +977,482 @@ def phase_train(launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ trainer
+TRAINER_ADAMW = dict(lr=3e-4, weight_decay=0.1)  # bench.py's, with mu in bf16
+
+
+@dataclasses.dataclass
+class TrainerSpec:
+    """What the trainer phase trains. Each job is (model, overrides, (B, S))
+    with its step counts: `step` is bench.py's gpt2-large step through the
+    trainer, `pipe` the GPipe step at llama-7b widths (depth cut) on the
+    gang's pp=1 mesh, `parity` the pipeline's card-vs-CPU check in the
+    driver, `kill` the run whose worker is SIGKILLed. `device` None: the
+    card; the CPU rehearsal (tests/test_torch_chip_smoke.py) passes tiny
+    models on "cpu" and one torch thread (`threads`), so that the driver's
+    and the worker's CPU products agree bit for bit."""
+
+    step: tuple = ("gpt2-large", {}, (13, 1024))
+    warm: int = 2
+    timed: int = 5
+    pipe: tuple = ("llama-7b", {"n_layers": 4}, (8, 512))
+    pipe_micro: int = 4
+    pipe_steps: int = 6              # 2 + 4
+    parity: tuple = ("llama-7b", {"n_layers": 2, "dtype": "float32"}, (2, 128))
+    parity_micro: int = 2
+    kill: tuple = ("gpt2-large", {"n_layers": 4}, (4, 1024))
+    kill_steps: int = 10
+    save_every: int = 2
+    kill_after: int = 5
+    init: dict = dataclasses.field(default_factory=lambda: {"log_to_driver": False})
+    device: str | None = None
+    threads: int | None = None
+
+
+def _trainer_cfg(job: tuple):
+    """The GPTConfig of a (model, overrides, (B, S)) job: flash attention,
+    remat "attn", bf16 compute unless overridden, max_seq at least S."""
+    from ray_tpu_torch.models.gpt import CONFIGS
+
+    model, over, (_, S) = job
+    return CONFIGS[model](**{"attn_impl": "flash", "remat": True, "remat_policy": "attn",
+                             "max_seq": max(CONFIGS[model]().max_seq, S), **over})
+
+
+def _trainer_batch(cfg, shape, seed: int, device):
+    """{"tokens": [B, S+1]} drawn from a generator keyed by `seed` (a step
+    of the killed run: its resumed incarnation draws the same batches)."""
+    import torch
+
+    B, S = shape
+    dev = torch.device(device)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1), device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(seed))}
+
+
+def _trainer_loop():
+    """The TorchTrainer's train_loop_per_worker (a closure, so cloudpickle
+    ships it by value: the worker imports only ray_tpu_torch). Every step
+    reports its loss and the kernel launches it made, counted in the
+    worker: the counts are set to 0 just before each step and read just
+    after it."""
+
+    def loop(config):
+        import os
+        import time
+
+        import torch
+        import torch.distributed as dist
+
+        from ray_tpu_torch import train
+        from ray_tpu_torch.kernels.flash_bwd import flash_bwd_dkv, flash_bwd_dq
+        from ray_tpu_torch.kernels.flash_fwd import flash_fwd
+        from ray_tpu_torch.kernels.rmsnorm import rmsnorm_fwd
+        from ray_tpu_torch.models import gpt
+        from ray_tpu_torch.optim import AdamW
+        from ray_tpu_torch.parallel import place
+        from ray_tpu_torch.parallel.mesh import axis_size
+        from ray_tpu_torch.train import torch as tt
+        from ray_tpu_torch.train.session import get_session
+
+        t_loop = time.time()
+        if config["threads"]:
+            torch.set_num_threads(config["threads"])
+        kernels = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv,
+                   "rmsnorm": rmsnorm_fwd}
+        mesh = tt.torch_utils.get_mesh(device_type=config["device_type"])
+        dev = tt.get_device()
+        on_card = dev.type == "cuda"
+        info = {"pid": os.getpid(), "t_loop": t_loop, "backend": dist.get_backend(), "device": str(dev),
+                "device_name": torch.cuda.get_device_name(dev) if on_card else "cpu",
+                "mesh": {n: int(s) for n, s in zip(mesh.mesh_dim_names, mesh.mesh.shape)},
+                "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+        def sync():
+            if on_card:
+                torch.cuda.synchronize()
+
+        def counted(fn):
+            for k in kernels.values():
+                k.launches = 0
+            out = fn()
+            return out, {n: k.launches for n, k in kernels.items()}
+
+        def placed(params, shardings):
+            return {k: place(v, mesh, shardings[k]).detach() for k, v in params.items()}
+
+        def report(job, **m):
+            train.report({"job": job, "t": time.time(), **info, **m})
+
+        def adamw(params):
+            return AdamW(params.values(), **config["adamw"], mu_dtype=torch.bfloat16)
+
+        def draw(cfg, B, S, seed):  # _trainer_batch's draw
+            return {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1), device=dev,
+                                            generator=torch.Generator(device=dev).manual_seed(seed))}
+
+        if config["job"] == "step":
+            # bench.py's step through the mesh, then the GPipe step.
+            cfg, (B, S) = config["step"]
+            params = placed(gpt.init_params(cfg, seed=0, device=dev), gpt.param_shardings(cfg, mesh))
+            step = gpt.make_train_step(cfg, adamw(params), mesh=mesh)
+            batch = draw(cfg, B, S, 1)
+            t0 = None
+            for i in range(config["warm"] + config["timed"]):
+                if i == config["warm"]:
+                    sync()
+                    t0 = time.perf_counter()
+                (_, m), launches = counted(lambda: step(params, batch))
+                report("step", i=i, loss=m["loss"].item(), grad_norm=m["grad_norm"].item(), launches=launches)
+            sync()
+            report("step_summary", tokens_per_s=B * S * config["timed"] / (time.perf_counter() - t0))
+            del params, step
+            if on_card:
+                torch.cuda.empty_cache()
+
+            cfg, (B, S) = config["pipe"]
+            M, pp = config["pipe_micro"], axis_size(mesh, "pp")
+            params = gpt.init_params(cfg, seed=2, device=dev)
+            batch = draw(cfg, B, S, 3)
+            with torch.no_grad():
+                serial = gpt.loss_fn(params, batch, cfg).item()
+            staged = placed(gpt.split_stage_params(params, cfg, pp), gpt.pipeline_stage_shardings(cfg, mesh))
+            del params
+            step = gpt.make_pipeline_train_step(cfg, adamw(staged), mesh, M)
+            for i in range(config["pipe_steps"]):
+                (_, m), launches = counted(lambda: step(staged, batch))
+                report("pipe", i=i, loss=m["loss"].item(), grad_norm=m["grad_norm"].item(), serial=serial,
+                       launches=launches)
+            del staged, step
+            if on_card:
+                torch.cuda.empty_cache()
+            return
+
+        # The killed run: an elastic checkpoint every `save_every` steps;
+        # the first incarnation waits to be killed after step `kill_after`.
+        cfg, (B, S) = config["kill"]
+        params = placed(gpt.init_params(cfg, seed=4, device=dev), gpt.param_shardings(cfg, mesh))
+        opt = adamw(params)
+        step = gpt.make_train_step(cfg, opt, mesh=mesh)
+        sess = train.get_elastic_session()
+        t0 = time.perf_counter()
+        tree = sess.restore()
+        restored = None
+        if tree is not None:
+            restored = sess.state.step
+            with torch.no_grad():
+                for k, p in params.items():
+                    mu = torch.zeros_like(p, dtype=torch.bfloat16)
+                    nu = torch.zeros_like(p)
+                    for dst, src in ((p, tree["params"][k]), (mu, tree["mu"][k]), (nu, tree["nu"][k])):
+                        (dst.to_local() if hasattr(dst, "to_local") else dst).copy_(src)
+                    opt.state[p] = {"step": tree["t"], "mu": mu, "nu": nu}
+            del tree
+        restore_s = time.perf_counter() - t0
+        for s in range(sess.state.step, config["kill_steps"]):
+            in_flight = sess.writer._pending > 0
+            batch = draw(cfg, B, S, 100 + s)
+            t0 = time.perf_counter()
+            (_, m), launches = counted(lambda: step(params, batch))
+            loss = m["loss"].item()
+            ms = (time.perf_counter() - t0) * 1e3
+            report("kill", step=s + 1, loss=loss, ms=ms, save_in_flight=in_flight, launches=launches,
+                   restored_from=restored, restore_s=restore_s)
+            if (s + 1) % config["save_every"] == 0:
+                t0 = time.perf_counter()
+                sess.save(s + 1, {"params": params, "mu": {k: opt.state[p]["mu"] for k, p in params.items()},
+                                  "nu": {k: opt.state[p]["nu"] for k, p in params.items()},
+                                  "t": opt.state[next(iter(params.values()))]["step"]})
+                report("save", step=s + 1, block_ms=(time.perf_counter() - t0) * 1e3)
+            if s + 1 == config["kill_after"] and not os.path.exists(config["marker"]):
+                sess.flush()  # the last commit before the kill has landed
+                session = get_session()
+                while session.history:  # every report polled and acknowledged by the driver
+                    time.sleep(0.01)
+                with open(config["marker"] + ".tmp", "w") as f:
+                    f.write(str(os.getpid()))
+                os.rename(config["marker"] + ".tmp", config["marker"])
+                time.sleep(600)
+                raise RuntimeError("the worker was not killed")
+        sess.flush()
+
+    return loop
+
+
+def _trainer_in_process(job: tuple, steps: int, device, seeds, warm: int = 0):
+    """The plain step (no mesh) in the driver from the trainer's seeds:
+    (losses, grad norms, tokens/s over the steps after `warm`). `seeds`:
+    (params seed, batch seed or None for one batch per step keyed 100 + s)."""
+    import torch
+
+    from ray_tpu_torch.models.gpt import init_params, make_train_step
+    from ray_tpu_torch.optim import AdamW
+
+    cfg = _trainer_cfg(job)
+    params = init_params(cfg, seed=seeds[0], device=device)
+    step = make_train_step(cfg, AdamW(params.values(), **TRAINER_ADAMW, mu_dtype=torch.bfloat16))
+    batches = [_trainer_batch(cfg, job[2], seeds[1] if seeds[1] is not None else 100 + s, device)
+               for s in range(steps)]
+    losses, norms, t0 = [], [], None
+    for s, batch in enumerate(batches):
+        if s == warm:
+            if device != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        _, m = step(params, batch)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    if device != "cpu":
+        torch.cuda.synchronize()
+    tok_s = job[2][0] * job[2][1] * (steps - warm) / (time.perf_counter() - t0)
+    del params, step
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return losses, norms, tok_s
+
+
+def _pipeline_parity(spec: TrainerSpec, counts: dict) -> None:
+    """The GPipe loss and every gradient on a pp=1 mesh, f32, TF32 off: the
+    card (kernels) against the port's CPU path, in the driver."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import make_mesh, place
+
+    on_card = spec.device is None
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    _one_rank_world("cpu:gloo,cuda:nccl" if on_card else "gloo")
+    try:
+        cfg = _trainer_cfg(spec.parity)
+        cpu_mesh, dev_mesh = make_mesh("cpu"), make_mesh("cuda" if on_card else "cpu")
+        params = gpt.split_stage_params(gpt.init_params(cfg, seed=1, device="cpu"), cfg, 1)
+        batch = _trainer_batch(cfg, spec.parity[2], 5, "cpu")
+        M = spec.parity_micro
+        out = {}
+        for name, mesh in (("cpu", cpu_mesh), ("card", dev_mesh)):
+            dev = "cuda" if name == "card" and on_card else "cpu"
+            shardings = gpt.pipeline_stage_shardings(cfg, mesh)
+            p = {k: place(v.to(dev), mesh, shardings[k]).detach().requires_grad_(True) for k, v in params.items()}
+            t0 = time.perf_counter()
+            with counted(counts) if name == "card" else contextlib.nullcontext({}) as run:
+                loss = gpt.pipeline_loss_fn(p, {"tokens": batch["tokens"].to(dev)}, cfg, mesh, M)
+                loss.backward()
+            out[name] = (loss.full_tensor().item(), {k: v.grad.full_tensor().cpu() for k, v in p.items()
+                                                      if v.grad is not None}, time.perf_counter() - t0)
+        (lc, gc, tc), (lg, gg, _) = out["cpu"], out["card"]
+        loss_d = abs(lg - lc) / abs(lc)
+        errs = {k: (gg[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30) for k, g in gc.items()}
+        worst = max(errs, key=errs.get)
+        log(f"trainer pipeline parity f32 {spec.parity[0]} {spec.parity[1]} B,S={spec.parity[2]} M={M} pp=1, "
+            f"card vs CPU: loss {lg:.6f} vs {lc:.6f} (rel diff {loss_d:.2e}); grads max|d|/max|ref|: worst "
+            f"{errs[worst]:.2e} ({worst}); CPU {tc:.1f} s; launches on the card {run}")
+        if set(gg) != set(gc) or loss_d > 1e-5 or errs[worst] > 1e-4:
+            raise AssertionError(f"trainer pipeline parity: loss rel diff {loss_d:.2e} (tol 1e-5), grad {worst} "
+                                 f"{errs[worst]:.2e} (tol 1e-4), gradients of {sorted(set(gg) ^ set(gc))} on "
+                                 "one side only")
+        L = cfg.n_layers
+        want = {"flash_fwd": M * L, "flash_bwd_dq": M * L, "flash_bwd_dkv": M * L, "rmsnorm": 4 * M * L + 1}
+        if on_card and run != want:
+            raise AssertionError(f"trainer pipeline parity: launches {run}, want {want}")
+    finally:
+        dist.destroy_process_group()
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def _fit(loop, config: dict, storage: str, name: str):
+    from ray_tpu_torch.train import FailureConfig, RunConfig, ScalingConfig, TorchTrainer
+
+    return TorchTrainer(loop, train_loop_config=config,
+                        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                        run_config=RunConfig(storage_path=storage, name=name,
+                                             failure_config=FailureConfig(max_failures=1))).fit()
+
+
+def _sum_launches(total: dict, reports) -> None:
+    for r in reports:
+        for k, n in r.get("launches", {}).items():
+            total[k] = total.get(k, 0) + n
+
+
+def _check_equal(what: str, got: list, want: list) -> None:
+    """Bit for bit: the trainer's values against the in-process run's."""
+    bad = [(i, g, w) for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if bad or len(got) != len(want):
+        raise AssertionError(f"trainer: {what} differ from the in-process run's (step, got, want): {bad[:4]}; "
+                             f"{len(got)} vs {len(want)} values")
+
+
+def phase_trainer(launches: dict, spec: TrainerSpec | None = None) -> None:
+    """Train on the copied runtime: `ray_tpu_torch.init()` in cluster mode,
+    then `TorchTrainer` gangs of one GPU worker over a one-rank NCCL world
+    (`torch_utils.get_mesh()`): bench.py's gpt2-large step, bit-equal to the
+    driver's plain step from the same seeds; the GPipe step at llama-7b
+    widths (depth cut) on the pp=1 mesh, its first loss within 2e-3 of the
+    serial loss; the pipeline's parity in the driver (card vs CPU); and a
+    run whose worker is SIGKILLed after step `kill_after`, which restarts
+    on a new worker from its last elastic checkpoint and repeats the
+    unkilled run's losses bit for bit."""
+    import tempfile
+    import threading
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api
+
+    spec = spec or TrainerSpec()
+    on_card = spec.device is None
+    device = "cuda" if on_card else spec.device
+    counts: dict = {}  # the launches of the phase's runs on the main path
+    if spec.threads:
+        torch.set_num_threads(spec.threads)
+
+    # 1. The driver's own runs first, each freed before the next: the plain
+    # step (bench.py's) and the unkilled run, then the pipeline's parity.
+    want_step, want_norms, in_process_tok_s = _trainer_in_process(spec.step, spec.warm + spec.timed, device,
+                                                                  (0, 1), warm=spec.warm)
+    want_kill, _, _ = _trainer_in_process(spec.kill, spec.kill_steps, device, (4, None))
+    _pipeline_parity(spec, counts)
+
+    jobs = {name: (_trainer_cfg(job), job[2]) for name, job in (("step", spec.step), ("pipe", spec.pipe),
+                                                                  ("kill", spec.kill))}
+    storage = tempfile.mkdtemp(prefix="rtput-trainer-")
+    base = {"device_type": device, "threads": spec.threads, "adamw": TRAINER_ADAMW, **jobs,
+            "warm": spec.warm, "timed": spec.timed, "pipe_micro": spec.pipe_micro, "pipe_steps": spec.pipe_steps,
+            "kill_steps": spec.kill_steps, "save_every": spec.save_every, "kill_after": spec.kill_after,
+            "marker": os.path.join(storage, "kill.pid")}
+    t0 = time.perf_counter()
+    rt.init(**spec.init)
+    backend = api._global_runtime().backend
+    session_dir, controller = backend.session_dir, backend._controller_proc.pid
+    try:
+        log(f"trainer: cluster up in {time.perf_counter() - t0:.2f} s, resources {rt.cluster_resources()}")
+
+        # 2. bench.py's step and the GPipe step through the trainer.
+        t_fit = time.time()
+        result = _fit(_trainer_loop(), {**base, "job": "step"}, storage, "step")
+        if result.error:
+            raise AssertionError(f"trainer: the step run failed: {result.error}")
+        hist = result.metrics_history
+        steps = [m for m in hist if m["job"] == "step"]
+        pipe = [m for m in hist if m["job"] == "pipe"]
+        summary = next(m for m in hist if m["job"] == "step_summary")
+        first = hist[0]
+        _sum_launches(counts, steps + pipe)
+        log(f"trainer: worker pid {first['pid']} on {first['device_name']} ({first['device']}, "
+            f"CUDA_VISIBLE_DEVICES {first['cuda_visible_devices']!r}), backend {first['backend']}, mesh "
+            f"{first['mesh']}; worker boot {first['t_loop'] - t_fit:.2f} s, fit() to the first report "
+            f"{first['t'] - t_fit:.2f} s")
+        _check_equal("losses", [m["loss"] for m in steps], want_step)
+        _check_equal("grad norms", [m["grad_norm"] for m in steps], want_norms)
+        B, S = spec.step[2]
+        log(f"trainer step {spec.step[0]} B={B} S={S}: losses and grad norms of {len(steps)} steps equal the "
+            f"in-process plain step's bit for bit ({want_step[0]:.6f} -> {want_step[-1]:.6f}); "
+            f"{summary['tokens_per_s']:.1f} tokens/s through the trainer, {in_process_tok_s:.1f} in process "
+            f"({summary['tokens_per_s'] / in_process_tok_s:.3f}x); launches per step {steps[-1]['launches']}")
+        pcfg = _trainer_cfg(spec.pipe)
+        M, L = spec.pipe_micro, pcfg.n_layers
+        rel = abs(pipe[0]["loss"] - pipe[0]["serial"]) / abs(pipe[0]["serial"])
+        log(f"trainer pipeline {spec.pipe[0]} {spec.pipe[1]} B,S={spec.pipe[2]} M={M} pp=1: loss "
+            f"{pipe[0]['loss']:.6f} -> {pipe[-1]['loss']:.6f} over {len(pipe)} steps, serial loss_fn "
+            f"{pipe[0]['serial']:.6f} (rel diff {rel:.2e}); launches per step {pipe[-1]['launches']}")
+        if rel > 2e-3 or not (math.isfinite(pipe[-1]["loss"]) and pipe[-1]["loss"] < pipe[0]["loss"]):
+            raise AssertionError(f"trainer pipeline: first loss {rel:.2e} from the serial loss (tol 2e-3), or the "
+                                 f"loss {pipe[0]['loss']} -> {pipe[-1]['loss']} is not finite and falling")
+        if on_card:
+            Ls = _trainer_cfg(spec.step).n_layers
+            for what, reports, want in (
+                    ("step", steps, {"flash_fwd": Ls, "flash_bwd_dq": Ls, "flash_bwd_dkv": Ls, "rmsnorm": 0}),
+                    ("pipeline", pipe, {"flash_fwd": M * L, "flash_bwd_dq": M * L, "flash_bwd_dkv": M * L,
+                                        "rmsnorm": 4 * M * L + 1})):
+                bad = [m["launches"] for m in reports if m["launches"] != want]
+                if bad:
+                    raise AssertionError(f"trainer {what}: launches per step {bad[0]}, predicted {want}")
+
+        # 3. The killed run: SIGKILL the worker after step kill_after.
+        known = _descendants(controller)
+        killed: dict = {}
+        done = threading.Event()
+
+        def killer():
+            while not os.path.exists(base["marker"]):
+                if done.wait(0.01):
+                    return
+            pid = int(open(base["marker"]).read())
+            ours = {p for p, _ in _session_processes({**known, **_descendants(controller)}, session_dir)}
+            if pid not in ours:
+                killed["error"] = f"pid {pid} is not a process of this session"
+                return
+            os.kill(pid, 9)
+            killed["t"], killed["pid"] = time.time(), pid
+
+        th = threading.Thread(target=killer, daemon=True)
+        th.start()
+        try:
+            result = _fit(_trainer_loop(), {**base, "job": "kill"}, storage, "kill")
+        finally:
+            done.set()
+            th.join(timeout=5)
+        if result.error or "t" not in killed:
+            raise AssertionError(f"trainer: the killed run failed ({result.error}) or its worker was not killed "
+                                 f"({killed})")
+        runs = [m for m in result.metrics_history if m["job"] == "kill"]
+        saves = [m for m in result.metrics_history if m["job"] == "save"]
+        _sum_launches(counts, runs)
+        before = [m for m in runs if m["pid"] == killed["pid"]]
+        after = [m for m in runs if m["pid"] != killed["pid"]]
+        last_commit = (spec.kill_after // spec.save_every) * spec.save_every
+        if [m["step"] for m in before] != list(range(1, spec.kill_after + 1)) or \
+                [m["step"] for m in after] != list(range(last_commit + 1, spec.kill_steps + 1)) or \
+                after[0]["restored_from"] != last_commit:
+            raise AssertionError(f"trainer: steps before the kill {[m['step'] for m in before]}, after "
+                                 f"{[m['step'] for m in after]} (restored from {after[0]['restored_from']}), want "
+                                 f"1..{spec.kill_after} then a resume from the step-{last_commit} commit")
+        _check_equal("losses of the killed run", [m["loss"] for m in before + after],
+                     [want_kill[m["step"] - 1] for m in before + after])
+        shards = [os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(storage) for f in fs
+                  if f.startswith("shard_") and f.endswith(".pkl")]
+        steady = before[1:] + after[1:]  # the first step of each incarnation warms up
+        with_save = [m["ms"] for m in steady if m["save_in_flight"]]
+        without = [m["ms"] for m in steady if not m["save_in_flight"]]
+        B, S = spec.kill[2]
+        log(f"trainer kill: {spec.kill[0]} {spec.kill[1]} B={B} S={S}, {spec.kill_steps} steps, an elastic "
+            f"checkpoint every {spec.save_every}: worker {killed['pid']} SIGKILLed after step {spec.kill_after}; "
+            f"the gang restarted on worker {after[0]['pid']} from the step-{last_commit} commit; restart "
+            f"{after[0]['t'] - killed['t']:.2f} s from the kill to the first report after the resume (the new "
+            f"worker's loop began {after[0]['t_loop'] - killed['t']:.2f} s after the kill, its restore took "
+            f"{after[0]['restore_s']:.2f} s); every loss equals the unkilled run's bit for bit "
+            f"({want_kill[0]:.6f} -> {want_kill[-1]:.6f}); checkpoint "
+            f"{(sum(shards) / max(len(shards), 1)) / 2**20:.1f} MB per commit ({len(shards)} kept); save() blocked "
+            f"{[round(m['block_ms'], 1) for m in saves]} ms; step ms with a save in flight "
+            f"{[round(x, 1) for x in with_save]}, without {[round(x, 1) for x in without]}")
+    finally:
+        left = _end_session(controller, session_dir)
+        import shutil
+
+        shutil.rmtree(storage, ignore_errors=True)
+    if left:
+        raise AssertionError(f"trainer: processes outlived shutdown (killed): {left}")
+    launches["trainer"] = counts
+    log(f"trainer launches (the trainer's steps, the pipeline parity's card side) {counts}")
+    if on_card and not all(counts.get(k, 0) > 0 for k in _kernels()):
+        raise AssertionError(f"trainer: a kernel of the path was not launched: {counts}")
+
+
 # ------------------------------------------------------------------ parallel
 MOE_TRAIN_SHAPE = (8, 1024)   # B, S of the gpt2-medium-moe step
 MOE_PARITY_SHAPE = (2, 128)
 CP_SHAPE = (2, 1024)          # ring / Ulysses forwards at llama-7b widths, 2 layers
 
 
-def _one_rank_nccl_world() -> None:
-    """A world of one rank on card 0, its store on a free local port."""
+def _one_rank_world(backend: str = "nccl") -> None:
+    """A world of one rank, its store on a free local port; on card 0
+    unless the backend is gloo alone ("cpu:gloo,cuda:nccl" serves meshes
+    of both device types)."""
     import socket
 
     import torch
@@ -978,9 +1461,12 @@ def _one_rank_nccl_world() -> None:
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
-    torch.cuda.set_device(0)
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0,
-                            device_id=torch.device("cuda", 0))
+    kwargs = {}
+    if backend != "gloo":
+        torch.cuda.set_device(0)
+    if backend == "nccl":
+        kwargs["device_id"] = torch.device("cuda", 0)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=1, rank=0, **kwargs)
 
 
 def _placed(params: dict, cfg, mesh) -> dict:
@@ -1210,7 +1696,7 @@ def phase_parallel(launches: dict) -> None:
 
     from ray_tpu_torch.parallel import make_mesh
 
-    _one_rank_nccl_world()
+    _one_rank_world()
     try:
         mesh = make_mesh()
         log(f"parallel: backend {dist.get_backend()}, world size {dist.get_world_size()}, mesh "
@@ -2091,6 +2577,8 @@ def main(argv=None) -> int:
         phase_train_parity(launches)
     if "train" in phases:
         phase_train(launches)
+    if "trainer" in phases:
+        phase_trainer(launches)
     if "parallel" in phases:
         phase_parallel(launches)
     generated = served = None

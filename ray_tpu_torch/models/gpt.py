@@ -697,15 +697,25 @@ def loss_fn(params, batch, cfg: GPTConfig, mesh=None):
     token_axes = tuple(a for entry in spec for a in axes_of(entry))
 
     def body(p, inputs, targets, mask):
-        from ..collective.ops import psum
-
         logits, aux = _forward(p, inputs, cfg, return_aux=True, auto=True)
-        ll = _vocab_log_likelihood(logits, targets)
-        m = torch.ones_like(ll) if mask is None else mask.float()
-        loss = -psum((ll * m).sum(), token_axes) / psum(m.sum(), token_axes).clamp_min(1.0)
+        loss = _mean_nll(_vocab_log_likelihood(logits, targets), mask, token_axes)
         return loss + aux if cfg.mlp_type == "moe" else loss
 
     return _on_mesh(mesh, cfg, params, body, (spec, spec, spec), P())(params, inputs, targets, mask)
+
+
+def _mean_nll(ll, mask, token_axes):
+    """The mean negative log-likelihood over every rank's tokens (automatic
+    mode): each rank's mean averaged over the token axes (each rank holds as
+    many tokens), or the masked sum over the masked count. At one rank it
+    is `_ce_loss`'s arithmetic op for op, so the one-rank mesh step is the
+    plain step bit for bit."""
+    from ..collective.ops import pmean, psum
+
+    if mask is None:
+        return -pmean(ll.mean(), token_axes)
+    m = mask.float()
+    return -psum((ll * m).sum(), token_axes) / psum(m.sum(), token_axes).clamp_min(1.0)
 
 
 def optax_global_norm(tensors):
@@ -713,20 +723,25 @@ def optax_global_norm(tensors):
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
-def make_train_step(cfg: GPTConfig, optimizer, mesh=None) -> Callable:
+def make_train_step(cfg: GPTConfig, optimizer, mesh=None, loss=None) -> Callable:
     """Returns `step(params, batch) -> (params, metrics)` with metrics
     {"loss", "grad_norm"} (0-dim f32 tensors; reading them synchronizes).
     `optimizer` is a torch optimizer over `params.values()` (the port's
     `optim.AdamW` for the reference's optax.adamw). The params are updated
     IN PLACE: the reference donates its state to the step. With `mesh` the
     params are DTensors placed by `param_shardings` (each gradient comes
-    back in its param's placement, and AdamW updates each rank's shard)."""
+    back in its param's placement, and AdamW updates each rank's shard).
+    `loss` overrides the loss callable (params, batch) -> scalar: the
+    pipeline train step rides this hook."""
+    if loss is None:
+        def loss(params, batch):
+            return loss_fn(params, batch, cfg, mesh)
 
     def step(params, batch):
         for p in params.values():
             p.requires_grad_(True)
             p.grad = None
-        value = loss_fn(params, batch, cfg, mesh)
+        value = loss(params, batch)
         value.backward()
         gnorm = optax_global_norm(p.grad for p in params.values() if p.grad is not None)
         optimizer.step()
@@ -735,6 +750,162 @@ def make_train_step(cfg: GPTConfig, optimizer, mesh=None) -> Callable:
         return params, {"loss": value.detach(), "grad_norm": gnorm.detach()}
 
     return step
+
+
+# ------------------------------------------------------- pipeline parallelism
+def split_stage_params(params, cfg: GPTConfig, num_stages: int):
+    """Reshape the [L, ...] layer stack to [S, L/S, ...] (the `stage` logical
+    dim: shard it over pp so each pp rank holds exactly its stage's layers).
+    Non-layer params (embeddings, final norm, head) stay as they are; they
+    live outside the pipelined region. Every returned tensor is a leaf (a
+    detached view of the given one), so an optimizer can be built over
+    them."""
+    if cfg.n_layers % num_stages != 0:
+        raise ValueError(f"{cfg.n_layers} layers not divisible by {num_stages} stages")
+    per = cfg.n_layers // num_stages
+    out = {}
+    for k, v in params.items():
+        if k in _LAYER_KEYS:
+            out[k] = v.detach().reshape(num_stages, per, *v.shape[1:])
+        else:
+            out[k] = v.detach()
+    return out
+
+
+def merge_stage_params(params, cfg: GPTConfig):
+    """Inverse of split_stage_params ([S, L/S, ...] -> [L, ...])."""
+    out = {}
+    for k, v in params.items():
+        if k in _LAYER_KEYS:
+            out[k] = v.detach().reshape(v.shape[0] * v.shape[1], *v.shape[2:])
+        else:
+            out[k] = v.detach()
+    return out
+
+
+def _stage_dims(cfg: GPTConfig):
+    """Logical dims of the stage-split layout: layer arrays gain a leading
+    `stage` dim (-> pp); the rest as `param_logical_dims`."""
+    dims = param_logical_dims(cfg)
+    for name, d in dims.items():
+        if name in _LAYER_KEYS:
+            assert d[0] == "layers"
+            dims[name] = ("stage", *d)
+    return dims
+
+
+def pipeline_stage_shardings(cfg: GPTConfig, mesh, rules: Optional[ShardingRules] = None):
+    """name -> DTensor placements of each param in the stage-split layout:
+    layer arrays gain a leading `stage` dim (-> pp); the rest match
+    param_shardings."""
+    rules = rules or ShardingRules.default()
+    return {name: rules.placements(mesh, *d) for name, d in _stage_dims(cfg).items()}
+
+
+def pipeline_loss_fn(params, batch, cfg: GPTConfig, mesh, num_microbatches: int):
+    """GPipe loss: the transformer stack runs as a pipeline over `pp`,
+    microbatches flowing stage to stage by ppermute (`parallel/pipeline.py`),
+    while each stage's blocks are partitioned over dp/fsdp/tp as the
+    automatic mode partitions them (fsdp gathered per layer, tp split
+    Megatron-style). Embeddings, the final norm, the head and the loss stay
+    outside the pipelined region. `params` is the stage-split layout of
+    split_stage_params (plain, or DTensors placed by
+    pipeline_stage_shardings); the loss comes back as a replicated DTensor.
+
+    The reference makes only `pp` manual and lets XLA partition each stage
+    over the other axes; the port's automatic mode is one per-rank program
+    on every axis (DTensor propagation cannot carry the model's ops, see
+    `_on_mesh`), so the pipeline is that program with the tick loop inside.
+    Each microbatch is split over the batch axes, so the tokens of
+    microbatch m are the reference's microbatch m (a MoE layer routes them
+    as one batch).
+
+    Limitations (the reference's): manual sp attention (ring/Ulysses)
+    cannot nest inside the pp-manual region, so those impls are rejected.
+    The MoE aux loss is averaged per microbatch (about the full-batch
+    value), bubble ticks masked out."""
+    from ..collective.ops import axis_index, psum
+    from ..parallel.mesh import axis_size
+    from ..parallel.pipeline import gpipe_ticks
+    from ..parallel.spmd import shard_fn
+
+    if cfg.attn_impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} needs its own manual sp axis and "
+            "cannot nest inside the pp-manual pipeline region; use 'flash' "
+            "or 'ref'."
+        )
+    S_pp = axis_size(mesh, "pp")
+    M = num_microbatches
+    inputs, targets, mask = _parse_batch(batch)
+    B, S_len = inputs.shape
+    if B % M != 0:
+        raise ValueError(f"batch {B} not divisible by num_microbatches {M}")
+    per = cfg.n_layers // S_pp
+    dims = _stage_dims(cfg)
+    param_specs = {k: _rules_spec(*dims[k]) for k in params}
+    batch_axes = _rules_spec("batch")[0]
+    token_axes = axes_of(batch_axes)
+    spec = P(None, batch_axes, None)  # [M, B/M, S]: each microbatch split over the batch axes
+
+    def micro(t):
+        return None if t is None else t.reshape(M, B // M, *t.shape[1:])
+
+    def body(p, inputs, targets, mask):
+        _, b, S = inputs.shape
+        positions = global_positions(cfg, S, inputs.device)
+        outer = {k: _whole(p[k], dims[k], keep=_KEPT_AXES) for k in _OUTER_KEYS if k in p}
+        x = _embed(outer, inputs.reshape(M * b, S), cfg, positions, auto=True).reshape(M, b, S, -1)
+        rope_tables = _rope_tables(cfg, inputs.device)
+        remat = cfg.remat and torch.is_grad_enabled()
+        context_fn = _remat_policy(cfg) if remat else None
+        stacks = {k: p[k][0].unbind(0) for k in _LAYER_KEYS if k in p}  # this stage's L/S layers
+        bound = bound_mesh()
+
+        def stage_fn(act):
+            aux_sum = None
+            for i in range(per):
+                layer = {k: ws[i] for k, ws in stacks.items()}
+                if remat:
+                    act, aux = checkpoint(_remat_block, cfg, rope_tables, bound, True, layer, act, positions,
+                                          use_reentrant=False, context_fn=context_fn)
+                else:
+                    act, aux = _remat_block(cfg, rope_tables, bound, True, layer, act, positions)
+                if aux is not None:
+                    aux_sum = aux if aux_sum is None else aux_sum + aux
+            return act, aux_sum
+
+        outs, auxes = gpipe_ticks(stage_fn, x, S_pp, "pp")
+        y = psum(outs, "pp").reshape(M * b, S, -1)
+        # The reference casts the final norm's weights to cfg.dtype here
+        # (`ray_tpu/models/gpt.py:841`), where its serial forward uses them
+        # as stored. Its f32 casts at the shard_map boundary (`:775-778`,
+        # `:826-828`) are XLA workarounds and exact round trips: dropped.
+        head = dict(outer, ln_f_w=outer["ln_f_w"].to(cfg.dtype), ln_f_b=outer["ln_f_b"].to(cfg.dtype))
+        loss = _mean_nll(_vocab_log_likelihood(_logits(head, y, cfg), targets.reshape(M * b, S)),
+                         None if mask is None else mask.reshape(M * b, S), token_axes)
+        if cfg.mlp_type != "moe":
+            return loss
+        # Stage s holds real data only for ticks s <= t < s + M; bubble
+        # ticks chew zeros and must not pollute the MoE aux loss.
+        s = axis_index("pp")
+        aux = functools.reduce(torch.add, [a * float(s <= t < s + M) for t, a in auxes])
+        return loss + psum(aux, "pp") / M
+
+    return shard_fn(body, mesh, (param_specs, spec, spec, spec), P())(
+        params, micro(inputs), micro(targets), micro(mask))
+
+
+def make_pipeline_train_step(cfg: GPTConfig, optimizer, mesh, num_microbatches: int) -> Callable:
+    """`step(params, batch) -> (params, metrics)` with the GPipe pipeline
+    inside (pp x dp/fsdp/tp composition); params in the stage-split layout,
+    placed by pipeline_stage_shardings."""
+    return make_train_step(
+        cfg,
+        optimizer,
+        mesh,
+        loss=lambda params, batch: pipeline_loss_fn(params, batch, cfg, mesh, num_microbatches),
+    )
 
 
 # ---------------------------------------------------------------- generation

@@ -10,6 +10,13 @@ from .mesh import (
     spec_placements,
     use_mesh,
 )
+from .pipeline import (
+    make_gpipe_fn,
+    make_pipelined_loss_fn,
+    merge_microbatches,
+    split_microbatches,
+    stack_stage_params,
+)
 from .spmd import parallelize, shard_fn
 
 __all__ = [
@@ -25,4 +32,9 @@ __all__ = [
     "use_mesh",
     "parallelize",
     "shard_fn",
+    "make_gpipe_fn",
+    "make_pipelined_loss_fn",
+    "split_microbatches",
+    "merge_microbatches",
+    "stack_stage_params",
 ]

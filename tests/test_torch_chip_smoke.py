@@ -11,6 +11,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 
@@ -212,3 +213,34 @@ def test_serve_phase_rehearsal_on_the_cpu():
     launches = {}
     chip_smoke.phase_serve(served, launches, spec)
     assert set(launches["serve"]) == set(chip_smoke._kernels()) and not any(launches["serve"].values())
+
+
+def test_trainer_phase_is_after_train():
+    assert chip_smoke.PHASES.index("trainer") > chip_smoke.PHASES.index("train")
+
+
+TRAINER_GPT = dict(vocab_size=64, n_layers=2, d_model=32, n_heads=2, d_head=16, d_mlp=64, max_seq=16)
+TRAINER_LLAMA = {**TINY, "attn_impl": "flash", "remat": True, "remat_policy": "attn", "max_seq": 16}
+
+
+def test_trainer_phase_rehearsal_on_the_cpu():
+    """The trainer phase's control flow, rehearsed on the CPU with tiny
+    models in a cluster with one advertised GPU and no card (every kernel's
+    plain version, so no launch is counted; one torch thread, so the
+    driver's and the worker's products agree bit for bit): the trainer's
+    steps equal the in-process ones, the pipeline step and its parity, the
+    worker SIGKILLed after step 3 and the run resumed from the step-2
+    commit with the unkilled losses, and the session's processes gone."""
+    spec = chip_smoke.TrainerSpec(
+        step=("gpt2-small", TRAINER_GPT, (2, 16)), warm=1, timed=2,
+        pipe=("llama-7b", TRAINER_LLAMA, (4, 16)), pipe_micro=2, pipe_steps=3,
+        parity=("llama-7b", TRAINER_LLAMA, (2, 16)), parity_micro=2,
+        kill=("gpt2-small", TRAINER_GPT, (2, 16)), kill_steps=6, save_every=2, kill_after=3,
+        init={"num_cpus": 4, "num_gpus": 1}, device="cpu", threads=1)
+    threads = torch.get_num_threads()
+    launches = {}
+    try:
+        chip_smoke.phase_trainer(launches, spec)
+    finally:
+        torch.set_num_threads(threads)
+    assert set(launches["trainer"]) == set(chip_smoke._kernels()) and not any(launches["trainer"].values())

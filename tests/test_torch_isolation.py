@@ -96,6 +96,13 @@ RUNTIME_COPY = (
     # The host-plane collective groups over the object store (the in-program
     # collectives beside them, `collective/ops.py`, are a port).
     "collective/__init__.py",
+    # The in-program GPipe pipeline (a port: PORTS).
+    "parallel/pipeline.py",
+    # Train: the trainer core, checkpoints and the elastic layer, the
+    # trainer (the port of two reference files) and the gang check.
+    "train/config.py", "train/result.py", "train/session.py", "train/base_trainer.py",
+    "train/data_parallel_trainer.py", "train/worker_group.py", "train/backend_executor.py",
+    "train/checkpoint.py", "train/elastic", "train/torch_trainer.py", "train/gang_check.py",
 )
 # Port-only files inside the copied directories.
 PORT_ONLY = {"core/devices.py", "core/host_names.py"}
@@ -123,9 +130,29 @@ DIVERGES = {
     "collective/__init__.py": "docstring: a line without the reference's own history",
     "serve/engine/deployment.py": "dtype by device.resolve_dtype, a device argument",
     "serve/engine/engine.py": "the engine on torch tensors: a port (PORTS)",
+    "train/config.py": "ScalingConfig.use_gpu and the GPU resource key, where the reference has use_tpu / TPU",
+    "train/worker_group.py": "the worker bundle's GPU key and num_gpus= (core/devices.ACCELERATOR)",
+    "train/checkpoint.py": "pytrees saved with torch.save, tensors on the CPU in their own dtype; no orbax",
+    "train/elastic/ckpt.py": "torch's pytrees and CPU torch tensors (bf16 kept), not jax.tree_util and numpy",
+    "parallel/pipeline.py": "the GPipe tick loop in eager torch: a port (PORTS)",
+    "train/gang_check.py": "one torch.distributed world, not jax.distributed: a port (PORTS)",
+    "train/torch_trainer.py": "the port of train/jax_trainer.py and train/torch_trainer.py (PORTS)",
 }
-# Diverging files that are ports, held by their structure, not line by line.
-PORTS = {"serve/engine/engine.py": "InferenceEngine"}
+# Diverging files that are ports, held by their structure, not line by line:
+# a class (its methods in the reference's order, its step()'s calls in
+# order), or a module (its top-level functions and classes in the
+# reference's order, and each class's methods in theirs) ported from one
+# reference file or several, with the names the port gives them.
+PORTS = {
+    "serve/engine/engine.py": {"class": "InferenceEngine"},
+    "parallel/pipeline.py": {"module": ["parallel/pipeline.py"]},
+    "train/gang_check.py": {"module": ["train/gang_check.py"]},
+    # One trainer for the reference's two: the accelerator trainer (one JAX
+    # worker per host) and the CPU gloo trainer.
+    "train/torch_trainer.py": {"module": ["train/jax_trainer.py", "train/torch_trainer.py"],
+                               "renames": {"JaxBackend": "TorchBackend", "JaxTrainer": "TorchTrainer",
+                                           "jax_utils": "torch_utils"}},
+}
 
 
 def rewrite(text: str) -> str:
@@ -167,7 +194,11 @@ def test_copy_does_not_drift(rel):
         assert port == ref, "generated protobuf and its source stay byte-identical"
         return
     if rel in PORTS:
-        _assert_same_structure(ref.decode(), port.decode(), PORTS[rel])
+        spec = PORTS[rel]
+        if "class" in spec:
+            _assert_same_structure(ref.decode(), port.decode(), spec["class"])
+        for src in spec.get("module", ()):
+            _assert_same_module((REF / src).read_text(), port.decode(), spec.get("renames", {}))
         return
     want = rewrite(ref.decode()).splitlines()
     got = port.decode().splitlines()
@@ -211,6 +242,39 @@ def test_structure_check_catches_a_missing_method_and_a_reordered_step():
         _assert_same_structure(ref, ref.replace("def a(self): pass", "def z(self): pass"), "E")
     with pytest.raises(AssertionError, match="calls differ"):
         _assert_same_structure(ref, ref.replace("self.a()\n        self.b()", "self.b()\n        self.a()"), "E")
+
+
+def _top_level(tree) -> dict:
+    return {n.name: n for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+
+
+def _assert_same_module(ref: str, port: str, renames: dict):
+    """A ported module keeps every top-level function and class of the
+    reference's (renamed as given), in the reference's order, and each
+    class every method of the reference's class, in order (the port may add
+    helpers)."""
+    want = {renames.get(k, k): n for k, n in _top_level(ast.parse(ref)).items()}
+    got = _top_level(ast.parse(port))
+    missing = [k for k in want if k not in got]
+    assert not missing, f"functions and classes of the reference not ported: {missing}"
+    assert [k for k in got if k in want] == list(want), "functions and classes out of the reference's order"
+    for name, node in want.items():
+        if isinstance(node, ast.ClassDef):
+            methods = [f.name for f in node.body if isinstance(f, ast.FunctionDef)]
+            have = [f.name for f in got[name].body if isinstance(f, ast.FunctionDef)]
+            assert [m for m in have if m in methods] == methods, f"{name}: methods {methods}, port has {have}"
+
+
+def test_module_structure_check_catches_a_missing_or_moved_function():
+    ref = "def a(): pass\nclass B:\n    def m(self): pass\n    def n(self): pass\ndef c(): pass\n"
+    _assert_same_module(ref, ref.replace("def c(): pass", "def helper(): pass\ndef c(): pass"), {})
+    _assert_same_module(ref, ref.replace("class B", "class Bee"), {"B": "Bee"})
+    with pytest.raises(AssertionError, match="not ported"):
+        _assert_same_module(ref, ref.replace("def c(): pass", ""), {})
+    with pytest.raises(AssertionError, match="order"):
+        _assert_same_module(ref, "def c(): pass\n" + ref.replace("def c(): pass", ""), {})
+    with pytest.raises(AssertionError, match="methods"):
+        _assert_same_module(ref, ref.replace("def n(self): pass", "pass"), {})
 
 
 def _changed_regions(want: list, got: list, bridge: int = 4):
@@ -280,6 +344,8 @@ def test_importing_the_port_loads_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.serve.engine.kv_transfer, ray_tpu_torch.serve.http_proxy\n"
         "import ray_tpu_torch.parallel, ray_tpu_torch.parallel.spmd, ray_tpu_torch.collective\n"
         "import ray_tpu_torch.collective.ops, ray_tpu_torch.ops.moe\n"
+        "import ray_tpu_torch.parallel.pipeline, ray_tpu_torch.train, ray_tpu_torch.train.elastic\n"
+        "import ray_tpu_torch.train.gang_check, ray_tpu_torch.train.torch_trainer\n"
         "new = set(sys.modules) - before\n"
         f"print(sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}))\n"
     )
