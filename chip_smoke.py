@@ -48,7 +48,22 @@ Phases:
               from the step-4 commit and every loss equals the unkilled
               run's bit for bit (restart s, checkpoint MB, step ms with and
               without a save in flight)
-  6c. parallel the mesh path on a one-rank NCCL world (make_mesh(), all six
+  6c. mpmd    MPMD pipeline training on the copied runtime: MPMDTrainer gangs
+              of GPU-worker stage actors (num_gpus 1/(S*dp) each), 1F1B over
+              compiled-DAG edges with ZeRO updates: llama-7b widths (4
+              layers, B=8 x S=512, M=4, 2 stages, dp=1; the trainer phase's
+              GPipe cell), its first loss within 2e-3 of loss_fn, falling,
+              launches per step as predicted (step ms, tokens/s, busy and
+              update s per stage, the bubble, edge bytes); the same run
+              interleaved (v=2) with the v=1 losses; run_local_pipeline
+              card vs CPU (llama-7b widths, 2 layers, f32); gpt2-large
+              widths (4 layers, tied: the bridge runs) at dp=2, ZeRO, a
+              checkpoint every 2 steps, a stage-1 replica SIGKILLed after
+              step 3: the gang re-spawns, restores at the common commit and
+              repeats an unkilled replicated run's losses bit for bit; ZeRO
+              halves the optimizer bytes per replica (restart s, update s,
+              bridge bytes)
+  6d. parallel the mesh path on a one-rank NCCL world (make_mesh(), all six
               axes 1): gpt2-medium-moe (8 experts, top-2) training at full
               width through make_train_step(mesh=) (tokens/s, step ms,
               device busy, peak memory, flash launches); the MoE model at 2
@@ -94,8 +109,8 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-PHASES = ("device", "build", "kernels", "parity", "train_parity", "train", "trainer", "parallel", "generate",
-          "engine", "runtime", "serve")
+PHASES = ("device", "build", "kernels", "parity", "train_parity", "train", "trainer", "mpmd", "parallel",
+          "generate", "engine", "runtime", "serve")
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, SXM
 H100_F32_FLOPS = 67e12     # CUDA-core f32 peak, SXM
 H100_BYTES_PER_S = 3.35e12
@@ -1286,7 +1301,7 @@ def _check_equal(what: str, got: list, want: list) -> None:
                              f"{len(got)} vs {len(want)} values")
 
 
-def phase_trainer(launches: dict, spec: TrainerSpec | None = None) -> None:
+def phase_trainer(launches: dict, spec: TrainerSpec | None = None) -> dict:
     """Train on the copied runtime: `ray_tpu_torch.init()` in cluster mode,
     then `TorchTrainer` gangs of one GPU worker over a one-rank NCCL world
     (`torch_utils.get_mesh()`): bench.py's gpt2-large step, bit-equal to the
@@ -1295,7 +1310,8 @@ def phase_trainer(launches: dict, spec: TrainerSpec | None = None) -> None:
     serial loss; the pipeline's parity in the driver (card vs CPU); and a
     run whose worker is SIGKILLed after step `kill_after`, which restarts
     on a new worker from its last elastic checkpoint and repeats the
-    unkilled run's losses bit for bit."""
+    unkilled run's losses bit for bit. Returns the GPipe step's timing
+    ({"step_ms", "tokens_per_s"}: report to report, after the warm-up)."""
     import tempfile
     import threading
 
@@ -1360,6 +1376,11 @@ def phase_trainer(launches: dict, spec: TrainerSpec | None = None) -> None:
         log(f"trainer pipeline {spec.pipe[0]} {spec.pipe[1]} B,S={spec.pipe[2]} M={M} pp=1: loss "
             f"{pipe[0]['loss']:.6f} -> {pipe[-1]['loss']:.6f} over {len(pipe)} steps, serial loss_fn "
             f"{pipe[0]['serial']:.6f} (rel diff {rel:.2e}); launches per step {pipe[-1]['launches']}")
+        gaps = [b["t"] - a["t"] for a, b in zip(pipe, pipe[1:])][max(spec.warm - 1, 0):]
+        gpipe = {"step_ms": sum(gaps) / len(gaps) * 1e3,
+                 "tokens_per_s": spec.pipe[2][0] * spec.pipe[2][1] * len(gaps) / sum(gaps)}
+        log(f"trainer pipeline step {gpipe['step_ms']:.1f} ms, {gpipe['tokens_per_s']:.1f} tokens/s (report to "
+            f"report, {len(gaps)} steps after {spec.warm} warm-up)")
         if rel > 2e-3 or not (math.isfinite(pipe[-1]["loss"]) and pipe[-1]["loss"] < pipe[0]["loss"]):
             raise AssertionError(f"trainer pipeline: first loss {rel:.2e} from the serial loss (tol 2e-3), or the "
                                  f"loss {pipe[0]['loss']} -> {pipe[-1]['loss']} is not finite and falling")
@@ -1441,6 +1462,384 @@ def phase_trainer(launches: dict, spec: TrainerSpec | None = None) -> None:
     log(f"trainer launches (the trainer's steps, the pipeline parity's card side) {counts}")
     if on_card and not all(counts.get(k, 0) > 0 for k in _kernels()):
         raise AssertionError(f"trainer: a kernel of the path was not launched: {counts}")
+    return gpipe
+
+
+# ------------------------------------------------------------------ mpmd
+MPMD_ADAMW = dict(lr=3e-4, weight_decay=0.1)
+
+
+@dataclasses.dataclass
+class MPMDSpec:
+    """What the mpmd phase trains, each job (model, overrides, (B, S)) as
+    in `TrainerSpec`: `pipe` the 1F1B cell (the trainer phase's GPipe cell:
+    S stages, dp=1, M microbatches; run again with `chunks` chunks per
+    stage), `parity` the card-vs-CPU check in the driver, `kill` the ZeRO
+    run over dp whose stage-1 replica is SIGKILLed after the `kill_after`
+    result (and its unkilled replicated twin). `device` None: the card; the
+    CPU rehearsal (tests/test_torch_chip_smoke.py) passes tiny models on
+    "cpu"."""
+
+    pipe: tuple = ("llama-7b", {"n_layers": 4}, (8, 512))
+    stages: int = 2
+    micro: int = 4
+    chunks: int = 2
+    warm: int = 2
+    timed: int = 4
+    # The 1F1B runs' batches: step s takes batch s mod `pool`. On a new
+    # batch every step the loss rose at llama-7b widths (11.17 -> 11.47 in
+    # 6 steps on an H100): each AdamW step at lr 3e-4 fits its own batch.
+    pool: int = 2
+    parity: tuple = ("llama-7b", {"n_layers": 2, "dtype": "float32"}, (2, 128))
+    parity_micro: int = 2
+    parity_steps: int = 2
+    kill: tuple = ("gpt2-large", {"n_layers": 4}, (8, 1024))
+    kill_micro: int = 2
+    kill_dp: int = 2
+    kill_steps: int = 6
+    kill_after: int = 3
+    ckpt_every: int = 2
+    adamw: dict = dataclasses.field(default_factory=lambda: dict(MPMD_ADAMW))
+    init: dict = dataclasses.field(default_factory=lambda: {"log_to_driver": False})
+    device: str | None = None
+
+
+def mpmd_launches(cfg, S: int, v: int, M: int, dp: int) -> dict:
+    """Kernel launches of one MPMD step, predicted from the schedule: each
+    non-last chunk runs its forward twice per microbatch (the F op, and the
+    recompute in `fwd_bwd`), the last chunk once (in `loss_bwd`); remat
+    "attn" saves the flash outputs, so the checkpointed block's backward
+    recomputes the RMSNorms but no flash forward; every layer runs one dQ
+    and one dK/dV; the last chunk adds the final RMSNorm."""
+    P, L = S * v, cfg.n_layers
+    l = L // P
+    remat = 1 if cfg.remat else 0
+    flash_remat = 1 if cfg.remat and cfg.remat_policy != "attn" else 0
+    r = 2 if cfg.norm == "rmsnorm" else 0
+    fwd = (P - 1) * l * (2 + flash_remat) + l * (1 + flash_remat)
+    rms = (P - 1) * r * l * (2 + remat) + (r * l * (1 + remat) + (1 if r else 0))
+    n = M * dp
+    return {"flash_fwd": n * fwd, "flash_bwd_dq": n * L, "flash_bwd_dkv": n * L, "rmsnorm": n * rms}
+
+
+def _mpmd_batch(cfg, shape, seed: int):
+    """[B, S+1] int64 tokens drawn by numpy from `seed` (a step of a run),
+    skewed toward low ids (V·u³, u uniform): a unigram a model learns in a
+    few steps, so the loss falls on a new batch every step."""
+    import numpy as np
+
+    B, S = shape
+    u = np.random.default_rng(seed).random((B, S + 1))
+    return (cfg.vocab_size * u ** 3).astype(np.int64)
+
+
+def _mpmd_parity(spec: MPMDSpec, counts: dict) -> None:
+    """run_local_pipeline on the card against the CPU from the same params
+    and batches, f32, TF32 off: losses 1e-5, grad norms 1e-4 (relative)."""
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.train.mpmd import run_local_pipeline
+
+    on_card = spec.device is None
+    cfg = _trainer_cfg(spec.parity)
+    params = gpt.init_params(cfg, seed=11, device="cpu")
+    batches = [_mpmd_batch(cfg, spec.parity[2], 20 + s) for s in range(spec.parity_steps)]
+    M = spec.parity_micro
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for name in ("cpu", "card"):
+            dev = "cuda" if name == "card" and on_card else "cpu"
+            t0 = time.perf_counter()
+            with counted(counts) if name == "card" else contextlib.nullcontext({}) as run:
+                res = run_local_pipeline(cfg, spec.stages, 1, M, batches, params=params, device=dev,
+                                         **spec.adamw)
+            out[name] = ([h["loss"] for h in res["history"]], [h["grad_norm"] for h in res["history"]],
+                         time.perf_counter() - t0)
+            del res
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del params
+    (lc, nc, tc), (lg, ng, tg_) = out["cpu"], out["card"]
+    loss_d = max(abs(g - c) / abs(c) for g, c in zip(lg, lc))
+    norm_d = max(abs(g - c) / abs(c) for g, c in zip(ng, nc))
+    want = {k: n * spec.parity_steps for k, n in mpmd_launches(cfg, spec.stages, 1, M, 1).items()}
+    log(f"mpmd parity f32 {spec.parity[0]} {spec.parity[1]} B,S={spec.parity[2]} M={M} S={spec.stages}, "
+        f"{spec.parity_steps} steps, run_local_pipeline card vs CPU: losses {[round(x, 6) for x in lg]} vs "
+        f"{[round(x, 6) for x in lc]} (worst rel diff {loss_d:.2e}), grad norms worst rel diff {norm_d:.2e}; "
+        f"card {tg_:.1f} s, CPU {tc:.1f} s; launches on the card {run} (predicted {want})")
+    if loss_d > 1e-5 or norm_d > 1e-4:
+        raise AssertionError(f"mpmd parity: loss rel diff {loss_d:.2e} (tol 1e-5), grad norm {norm_d:.2e} "
+                             "(tol 1e-4)")
+    if on_card and run != want:
+        raise AssertionError(f"mpmd parity: launches {run}, predicted {want}")
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def _mpmd_fit(cfg, spec: MPMDSpec, storage: str, name: str, job: tuple, seed: int, batch_seed: int,
+              steps: int, batch_hook=None, holder: dict | None = None, pool: int | None = None, **options):
+    """One MPMDTrainer.fit() (a fresh gang of GPU-worker stage actors).
+    Step s takes the batch of seed `batch_seed + s` (with `pool`, of
+    `batch_seed + s % pool`: a few batches seen again, so the loss falls as
+    the model fits them); `batch_hook(step)` runs in the driver before each
+    step's batch, and `holder["trainer"]` is the trainer while it runs."""
+    from ray_tpu_torch.train import FailureConfig, RunConfig
+    from ray_tpu_torch.train.mpmd import MPMDOptions, MPMDTrainer
+
+    def batch_fn(step):
+        if batch_hook is not None:
+            batch_hook(step)
+        return _mpmd_batch(cfg, job[2], batch_seed + (step % pool if pool else step))
+
+    opts = MPMDOptions(**{"num_stages": spec.stages, "seed": seed, "device": spec.device, "step_timeout_s": 600.0,
+                          "channel_timeout_s": 600.0, "ckpt_every": 10 ** 6, **spec.adamw, **options})
+    trainer = MPMDTrainer(cfg, opts, steps, batch_fn,
+                          run_config=RunConfig(storage_path=storage, name=name,
+                                               failure_config=FailureConfig(max_failures=1, backoff_base_s=1.0)),
+                          experiment_name=name)
+    if holder is not None:
+        holder["trainer"] = trainer
+    t0 = time.perf_counter()
+    res = trainer.fit()
+    res["fit_s"] = time.perf_counter() - t0
+    if res["error"]:
+        raise AssertionError(f"mpmd {name}: the run failed: {res['error']}")
+    return res
+
+
+def _mpmd_step_launches(h) -> dict:
+    """A step's launches, summed over the replicas that counted them."""
+    out: dict = {}
+    for m in h["replicas"].values():
+        for k, n in m["launches"].items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def _mpmd_sum(counts: dict, history) -> None:
+    for h in history:
+        for k, n in _mpmd_step_launches(h).items():
+            counts[k] = counts.get(k, 0) + n
+
+
+def _mpmd_bytes(history, key: str) -> float:
+    """Bytes sent per step over the edges (`wire`) or the bridge, over the
+    run's steps after the first (the counters are cumulative per actor)."""
+    per = []
+    for a, b in zip(history, history[1:]):
+        if a["dp"] != b["dp"] or b["step"] != a["step"] + 1:
+            continue
+        per.append(sum(b["replicas"][r].get(key, {}).get("raw_bytes", 0) -
+                       a["replicas"][r].get(key, {}).get("raw_bytes", 0) for r in b["replicas"]))
+    return sum(per) / max(len(per), 1)
+
+
+def _wait_card_released(free_before, what: str) -> None:
+    """Wait (up to 60 s) for the card's memory to come back after a gang's
+    actors were killed: a GPU worker frees its memory once it is reaped."""
+    import torch
+
+    if free_before is None:
+        return
+    deadline = time.monotonic() + 60
+    while torch.cuda.mem_get_info()[0] < free_before - MEMORY_RELEASE_SLACK and time.monotonic() < deadline:
+        time.sleep(0.25)
+    free = torch.cuda.mem_get_info()[0]
+    if free < free_before - MEMORY_RELEASE_SLACK:
+        raise AssertionError(f"mpmd {what}: the card's memory was not released ({free / 2**30:.2f} GiB free, "
+                             f"{free_before / 2**30:.2f} before)")
+
+
+def phase_mpmd(launches: dict, gpipe: dict | None = None, spec: MPMDSpec | None = None) -> None:
+    """MPMD pipeline training on the copied runtime: `ray_tpu_torch.init()`
+    in cluster mode, `MPMDTrainer` gangs of GPU-worker stage actors
+    (num_gpus=1/(S*dp) each) exchanging activations and gradients over
+    compiled-DAG edges, each stage's dp replicas running the ZeRO update
+    over the host-plane collectives. The 1F1B cell (the trainer phase's
+    GPipe cell) and its interleaved twin; the card-vs-CPU parity in the
+    driver; gpt2-large widths at dp=2 (tied: the bridge runs) with a
+    stage-1 replica SIGKILLed after the `kill_after` result, resumed at the
+    common commit. Launches are counted in each actor, per step."""
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.train.elastic import latest_common_committed
+    from ray_tpu_torch.train.mpmd import theoretical_bubble_fraction
+
+    spec = spec or MPMDSpec()
+    on_card = spec.device is None
+    counts: dict = {}
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.empty_cache()
+        log(f"mpmd: driver device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB free")
+
+    # 1. The driver's own work first, each freed before the next: the
+    # pipeline's parity, then loss_fn of the 1F1B cell's first batch.
+    _mpmd_parity(spec, counts)
+    cfg = _trainer_cfg(spec.pipe)
+    S, M, v = spec.stages, spec.micro, spec.chunks
+    steps = spec.warm + spec.timed
+    dev = "cuda" if on_card else "cpu"
+    params = gpt.init_params(cfg, seed=7, device="cpu")
+    with torch.no_grad():
+        full = {k: t.to(dev) for k, t in params.items()}
+        serial = gpt.loss_fn(full, {"tokens": torch.as_tensor(_mpmd_batch(cfg, spec.pipe[2], 100)).to(dev)},
+                             cfg).item()
+    del params, full
+    if on_card:
+        torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0] if on_card else None
+
+    storage = tempfile.mkdtemp(prefix="rtput-mpmd-")
+    t0 = time.perf_counter()
+    rt.init(**spec.init)
+    backend = api._global_runtime().backend
+    session_dir, controller = backend.session_dir, backend._controller_proc.pid
+    try:
+        log(f"mpmd: cluster up in {time.perf_counter() - t0:.2f} s, resources {rt.cluster_resources()}")
+
+        # 2. 1F1B and interleaved 1F1B at llama-7b widths.
+        runs = {}
+        for chunks in (1, v):
+            res = _mpmd_fit(cfg, spec, storage, f"pipe-v{chunks}", spec.pipe, seed=7, batch_seed=100, steps=steps,
+                            pool=spec.pool, dp=1, num_microbatches=M, num_chunks=chunks, zero=True,
+                            num_gpus_per_replica=1.0 / S)
+            runs[chunks] = res
+            _wait_card_released(free_before, f"pipe v={chunks}")
+        B, Sq = spec.pipe[2]
+        for chunks, res in runs.items():
+            hist = res["history"]
+            _mpmd_sum(counts, hist)
+            timed = hist[spec.warm:]
+            step_s = sum(h["wall_s"] for h in timed) / len(timed)
+            want = mpmd_launches(cfg, S, chunks, M, 1)
+            per_stage = {s: (sum(h["replicas"][f"s{s}r0"]["busy_s"] for h in timed) / len(timed),
+                             sum(h["replicas"][f"s{s}r0"]["update_s"] for h in timed) / len(timed))
+                         for s in range(S)}
+            bubble = sum(h["bubble_frac"] for h in timed) / len(timed)
+            against = "" if not gpipe else \
+                f"; the GPipe cell {gpipe['step_ms']:.1f} ms, {gpipe['tokens_per_s']:.1f} tokens/s"
+            log(f"mpmd 1F1B {spec.pipe[0]} {spec.pipe[1]} B={B} S={Sq} M={M} stages={S} v={chunks} dp=1 ZeRO: loss "
+                f"{hist[0]['loss']:.6f} -> {hist[-1]['loss']:.6f} over {len(hist)} steps; step "
+                f"{step_s * 1e3:.1f} ms, {B * Sq / step_s:.1f} tokens/s (mean of {len(timed)} after {spec.warm} "
+                f"warm-up){against}; "
+                f"per stage busy_s, update_s {({s: (round(b, 4), round(u, 4)) for s, (b, u) in per_stage.items()})}; "
+                f"bubble {bubble:.4f} (theory {theoretical_bubble_fraction(S, M, chunks):.4f}: one card, the stages "
+                f"time-slice it); edge bytes per step {_mpmd_bytes(hist, 'wire') / 2**20:.1f} MiB; fit() "
+                f"{res['fit_s']:.1f} s; launches per step {_mpmd_step_launches(hist[-1])} (predicted {want})")
+            if on_card:
+                bad = [_mpmd_step_launches(h) for h in hist if _mpmd_step_launches(h) != want]
+                if bad:
+                    raise AssertionError(f"mpmd v={chunks}: launches per step {bad[0]}, predicted {want}")
+        one = runs[1]["history"]
+        rel = abs(one[0]["loss"] - serial) / abs(serial)
+        log(f"mpmd 1F1B first loss {one[0]['loss']:.6f} vs loss_fn {serial:.6f} (rel diff {rel:.2e})")
+        if rel > 2e-3 or not (math.isfinite(one[-1]["loss"]) and one[-1]["loss"] < one[0]["loss"]):
+            raise AssertionError(f"mpmd 1F1B: first loss {rel:.2e} from loss_fn (tol 2e-3), or the loss "
+                                 f"{one[0]['loss']} -> {one[-1]['loss']} is not finite and falling")
+        l1, l2 = [h["loss"] for h in one], [h["loss"] for h in runs[v]["history"]]
+        worst = max(abs(a - b) / abs(a) for a, b in zip(l1, l2))
+        log(f"mpmd interleaved v={v} losses vs v=1: "
+            f"{'bit for bit' if l1 == l2 else 'NOT bit-equal'} (worst rel diff {worst:.2e})")
+        if worst > 1e-3 or len(l1) != len(l2):
+            raise AssertionError(f"mpmd interleaved: losses {l2} vs v=1 {l1} (tol 1e-3)")
+
+        # 3. ZeRO over dp with the bridge: the unkilled replicated run, then
+        # the ZeRO run with a stage-1 replica SIGKILLed.
+        kcfg = _trainer_cfg(spec.kill)
+        D = spec.kill_dp
+        common = dict(dp=D, dp_min=1, dp_max=D, num_microbatches=spec.kill_micro, num_chunks=1,
+                      num_gpus_per_replica=1.0 / (S * D))
+        plain = _mpmd_fit(kcfg, spec, storage, "zero-off", spec.kill, seed=9, batch_seed=300, steps=spec.kill_steps,
+                          zero=False, **common)
+        _wait_card_released(free_before, "zero-off")
+        _mpmd_sum(counts, plain["history"])
+        want_losses = [h["loss"] for h in plain["history"]]
+        known = _descendants(controller)
+        killed: dict = {}
+        holder: dict = {}
+        commit = spec.kill_after - spec.kill_after % spec.ckpt_every
+        calls = []
+
+        def kill_hook(step):
+            calls.append((step, time.time()))
+            if step != spec.kill_after or killed:
+                return
+            trainer = holder["trainer"]
+            root = trainer.run_config.resolve_storage()
+            deadline = time.monotonic() + 120
+            while (latest_common_committed(root, S) or (0,))[0] < commit and time.monotonic() < deadline:
+                time.sleep(0.05)
+            pid = api.get(trainer.gang.actors[(1, 0)].pid.remote(), timeout=60)
+            ours = {p for p, _ in _session_processes({**known, **_descendants(controller)}, session_dir)}
+            if pid not in ours:
+                raise AssertionError(f"mpmd kill: pid {pid} is not a process of this session")
+            os.kill(pid, 9)
+            killed["t"], killed["pid"] = time.time(), pid
+
+        res = _mpmd_fit(kcfg, spec, storage, "zero-kill", spec.kill, seed=9, batch_seed=300, steps=spec.kill_steps,
+                        batch_hook=kill_hook, holder=holder, zero=True, ckpt_every=spec.ckpt_every, **common)
+        _wait_card_released(free_before, "zero-kill")
+        hist = res["history"]
+        _mpmd_sum(counts, hist)
+        sup = holder["trainer"]._supervisor
+        got_steps = [h["step"] for h in hist]
+        want_steps = list(range(1, spec.kill_after + 1)) + list(range(commit + 1, spec.kill_steps + 1))
+        if "t" not in killed or got_steps != want_steps or res["attempts"] < 1:
+            raise AssertionError(f"mpmd kill: killed {killed}, steps {got_steps} (want {want_steps}), attempts "
+                                 f"{res['attempts']}")
+        new_dp = hist[-1]["dp"]
+        resumed = [t for s, t in calls if t > killed["t"]]
+        restart_s = resumed[1] - killed["t"] if len(resumed) > 1 else float("nan")
+        same = [h["loss"] for h in hist] == [want_losses[s - 1] for s in got_steps]
+        pre = [h["loss"] for h in hist[:spec.kill_after]] == want_losses[:spec.kill_after]
+        worst = max(abs(h["loss"] - want_losses[h["step"] - 1]) / abs(want_losses[h["step"] - 1]) for h in hist)
+        zb = max(h["opt_bytes_per_replica"] for h in hist[:spec.kill_after])
+        rb = plain["history"][0]["opt_bytes_per_replica"]
+        upd = {r: round(sum(h["replicas"][r]["update_s"] for h in hist[1:spec.kill_after]) /
+                        max(spec.kill_after - 1, 1), 4) for r in hist[0]["replicas"]}
+        Bk, Sk = spec.kill[2]
+        log(f"mpmd kill: {spec.kill[0]} {spec.kill[1]} B={Bk} S={Sk} M={spec.kill_micro} stages={S} dp={D} ZeRO, tied "
+            f"(bridge), checkpoint every {spec.ckpt_every}: stage-1 replica 0 (pid {killed['pid']}) SIGKILLed after "
+            f"the step-{spec.kill_after} result; the mesh aborted, the gang re-spawned at dp={new_dp} "
+            f"(_pick_dp), restored at the common commit {commit} and ran to step {got_steps[-1]}; restart "
+            f"{restart_s:.2f} s from the kill to the first result after the resume (supervisor recovery "
+            f"{sup.last_recovery_s:.2f} s); losses {'equal' if same else 'DIFFER from'} the unkilled replicated "
+            f"run's at dp={D} bit for bit (worst rel diff {worst:.2e}; before the kill "
+            f"{'bit for bit' if pre else 'not bit-equal'}); optimizer bytes per replica {zb / 2**20:.1f} MiB ZeRO vs "
+            f"{rb / 2**20:.1f} MiB replicated ({rb / zb:.3f}x); update_s by replica {upd}; step "
+            f"{sum(h['wall_s'] for h in hist[1:spec.kill_after]) / max(spec.kill_after - 1, 1) * 1e3:.1f} ms; "
+            f"bridge bytes per step {_mpmd_bytes(hist[:spec.kill_after], 'bridge') / 2**20:.1f} MiB, edge "
+            f"{_mpmd_bytes(hist[:spec.kill_after], 'wire') / 2**20:.1f} MiB; launches per step "
+            f"{_mpmd_step_launches(hist[0])} (predicted {mpmd_launches(kcfg, S, 1, spec.kill_micro, D)})")
+        if not pre or (new_dp == D and not same) or worst > 1e-3:
+            raise AssertionError(f"mpmd kill: losses {[h['loss'] for h in hist]} vs unkilled {want_losses}")
+        if not 1.9 < rb / zb < 2.1:
+            raise AssertionError(f"mpmd kill: replicated/ZeRO optimizer bytes {rb / zb:.3f}, want 1.9-2.1")
+        if on_card:
+            for h in hist + plain["history"]:
+                want = mpmd_launches(kcfg, S, 1, spec.kill_micro, h["dp"])
+                if _mpmd_step_launches(h) != want:
+                    raise AssertionError(f"mpmd kill: launches per step {_mpmd_step_launches(h)}, predicted {want}")
+    finally:
+        left = _end_session(controller, session_dir)
+        shutil.rmtree(storage, ignore_errors=True)
+    if left:
+        raise AssertionError(f"mpmd: processes outlived shutdown (killed): {left}")
+    launches["mpmd"] = counts
+    log(f"mpmd launches (the trainers' steps, the parity's card side) {counts}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if on_card and not all(counts.get(k, 0) > 0 for k in _kernels()):
+        raise AssertionError(f"mpmd: a kernel of the path was not launched: {counts}")
 
 
 # ------------------------------------------------------------------ parallel
@@ -2577,8 +2976,11 @@ def main(argv=None) -> int:
         phase_train_parity(launches)
     if "train" in phases:
         phase_train(launches)
+    gpipe = None
     if "trainer" in phases:
-        phase_trainer(launches)
+        gpipe = phase_trainer(launches)
+    if "mpmd" in phases:
+        phase_mpmd(launches, gpipe)
     if "parallel" in phases:
         phase_parallel(launches)
     generated = served = None

@@ -783,6 +783,165 @@ def merge_stage_params(params, cfg: GPTConfig):
     return out
 
 
+def extract_stage_params(
+    params, cfg: GPTConfig, stage: int, num_stages: int,
+    num_chunks: int = 1, chunk: int = 0,
+):
+    """The parameter subset chunk `chunk` of stage `stage` needs (the MPMD
+    split, `train/mpmd/`): its layer slice of the S*v virtual-stage split
+    (virtual stage vs = chunk*S + stage), the embeddings on the first
+    virtual stage, the final norm and the LM head on the last. With tied
+    embeddings tok_embed lands on BOTH boundary virtual stages; the runners
+    sum its two partial gradients over the embedding bridge before the
+    update. Layer slices are views of the stacked tensors."""
+    pipeline = num_stages * num_chunks
+    if cfg.n_layers % pipeline != 0:
+        raise ValueError(
+            f"{cfg.n_layers} layers not divisible by {num_stages} stages "
+            f"x {num_chunks} chunks"
+        )
+    if not 0 <= chunk < num_chunks:
+        raise ValueError(f"chunk {chunk} out of range for {num_chunks} chunks")
+    vs = chunk * num_stages + stage
+    per = cfg.n_layers // pipeline
+    out = {k: v[vs * per:(vs + 1) * per] for k, v in params.items() if k in _LAYER_KEYS}
+    first, last = vs == 0, vs == pipeline - 1
+    if first or (last and cfg.tie_embeddings):
+        out["tok_embed"] = params["tok_embed"]
+    if first and cfg.pos == "learned":
+        out["pos_embed"] = params["pos_embed"]
+    if last:
+        out["ln_f_w"] = params["ln_f_w"]
+        out["ln_f_b"] = params["ln_f_b"]
+        if not cfg.tie_embeddings:
+            out["lm_head"] = params["lm_head"]
+    return out
+
+
+def stage_forward(stage_params, inp, cfg: GPTConfig, *, first: bool, last: bool, positions=None, mesh=None):
+    """One pipeline stage of `forward`: embed if `first`, this stage's layer
+    slice, final norm + head if `last`. `inp` is tokens [B, S] on the first
+    stage, activations [B, S, E] (cfg.dtype: what a pipeline edge carries)
+    otherwise. With `cfg.remat` and grad enabled each block is checkpointed
+    as in `forward`. Returns (output, MoE aux sum)."""
+    device = inp.device
+    S = inp.shape[1]
+    if positions is None:
+        positions = torch.arange(S, device=device) if mesh is not None else global_positions(cfg, S, device)
+    x = _embed(stage_params, inp, cfg, positions) if first else inp.to(cfg.dtype)
+    rope_tables = _rope_tables(cfg, device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    context_fn = _remat_policy(cfg) if remat else None
+    stacks = {k: stage_params[k].unbind(0) for k in _LAYER_KEYS if k in stage_params}
+    bound = mesh if mesh is not None else bound_mesh()
+    aux_sum = torch.zeros((), dtype=torch.float32, device=device)
+    for i in range(len(next(iter(stacks.values()), ()))):
+        layer = {k: ws[i] for k, ws in stacks.items()}
+        if remat:
+            x, aux = checkpoint(_remat_block, cfg, rope_tables, bound, False, layer, x, positions,
+                                use_reentrant=False, context_fn=context_fn)
+        else:
+            x, aux = _remat_block(cfg, rope_tables, bound, False, layer, x, positions)
+        if aux is not None:
+            aux_sum = aux_sum + aux
+    if not last:
+        return x, aux_sum
+    return _logits(stage_params, x, cfg), aux_sum
+
+
+def check_mpmd_partitionable(cfg: GPTConfig, num_stages: int, num_chunks: int = 1) -> None:
+    """Constraints of the MPMD stage split (each stage a separate program on
+    its own gang actor, `ray_tpu_torch.train.mpmd`):
+
+    * layers must divide evenly into the S*v virtual stages;
+    * interleaving (num_chunks > 1) needs num_stages > 1: chunk-to-chunk
+      edges on a single stage would be self-loops;
+    * tied embeddings are allowed: the runners sum tok_embed's two partial
+      gradients over the first/last-stage bridge;
+    * MoE is refused: the router aux loss is stage-local and the reported
+      loss would silently omit upstream stages' aux terms.
+    """
+    if num_stages < 1:
+        raise ValueError(f"num_stages must be >= 1, got {num_stages}")
+    if num_chunks < 1:
+        raise ValueError(f"num_chunks must be >= 1, got {num_chunks}")
+    if num_chunks > 1 and num_stages == 1:
+        raise ValueError("interleaved MPMD (num_chunks > 1) needs num_stages > 1")
+    if cfg.n_layers % (num_stages * num_chunks) != 0:
+        raise ValueError(
+            f"{cfg.n_layers} layers not divisible by {num_stages} stages "
+            f"x {num_chunks} chunks"
+        )
+    if cfg.mlp_type == "moe":
+        raise NotImplementedError("MPMD stages do not carry the MoE aux loss across hosts yet")
+
+
+def make_mpmd_stage_fns(
+    cfg: GPTConfig, stage: int, num_stages: int, num_chunks: int = 1, chunk: int = 0,
+) -> Dict[str, Callable]:
+    """Per-chunk training functions of the MPMD pipeline; num_chunks > 1 is
+    the interleaved split, where this builds ONE of the stage's v chunk
+    programs (virtual stage chunk*S + stage). Each takes the chunk's param
+    subset (`extract_stage_params`; f32 master tensors) and mirrors the
+    reference's `jax.vjp` functions:
+
+    * ``fwd(params, x) -> y`` without grad: x is tokens [B, S] on the first
+      virtual stage, activations [B, S, E] elsewhere; y is what the chunk
+      ships downstream (logits on the last).
+    * non-last chunks: ``fwd_bwd(params, x, gy) -> (param_grads, gx)``: the
+      forward RECOMPUTED from the saved chunk input under grad, then
+      ``torch.autograd.grad(y, (*leaves, x), gy)``. The runner keeps only
+      each in-flight microbatch's chunk input. On the first virtual stage
+      gx is None (its input is integer tokens).
+    * the last chunk: ``loss_bwd(params, x, targets, mask=None) -> (loss,
+      param_grads, gx)``, next-token CE in f32.
+
+    Gradients come back for every param (zeros for one the chunk does not
+    use, as `jax.grad` gives), in the params' dtype; gx in x's."""
+    check_mpmd_partitionable(cfg, num_stages, num_chunks)
+    vs = chunk * num_stages + stage
+    first, last = vs == 0, vs == num_stages * num_chunks - 1
+
+    def _fwd(p, x):
+        y, _aux = stage_forward(p, x, cfg, first=first, last=last)
+        return y
+
+    def fwd(p, x):
+        with torch.no_grad():
+            return _fwd(p, x)
+
+    def _grads(out_fn, p, x, cot=None):
+        # Fresh leaves: detached from whatever made the params, so the
+        # gradient lands on these f32 tensors (never a cast copy), and the
+        # saved input detached and marked, so gx is its gradient.
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        xin = x if first else x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = out_fn(leaves, xin)
+        wrt = [*leaves.values()] + ([] if first else [xin])
+        got = torch.autograd.grad(out, wrt, cot, allow_unused=True)
+        gp = {k: torch.zeros_like(v) if g is None else g for (k, v), g in zip(leaves.items(), got)}
+        return out, gp, None if first else got[-1]
+
+    fns: Dict[str, Callable] = {"fwd": fwd}
+    if last:
+        def loss_bwd(p, x, targets, mask=None):
+            def loss(q, xin):
+                return _ce_loss(_fwd(q, xin), targets, mask)
+
+            value, gp, gx = _grads(loss, p, x)
+            return value.detach(), gp, gx
+
+        fns["loss_bwd"] = loss_bwd
+    else:
+        def fwd_bwd(p, x, gy):
+            _, gp, gx = _grads(_fwd, p, x, gy)
+            return gp, gx
+
+        fns["fwd_bwd"] = fwd_bwd
+    return fns
+
+
 def _stage_dims(cfg: GPTConfig):
     """Logical dims of the stage-split layout: layer arrays gain a leading
     `stage` dim (-> pp); the rest as `param_logical_dims`."""

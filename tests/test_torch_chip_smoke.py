@@ -244,3 +244,42 @@ def test_trainer_phase_rehearsal_on_the_cpu():
     finally:
         torch.set_num_threads(threads)
     assert set(launches["trainer"]) == set(chip_smoke._kernels()) and not any(launches["trainer"].values())
+
+
+def test_mpmd_phase_is_after_trainer():
+    assert chip_smoke.PHASES.index("mpmd") == chip_smoke.PHASES.index("trainer") + 1
+
+
+def test_mpmd_launch_prediction():
+    """The launches the mpmd phase predicts per step, from the schedule:
+    at llama-7b widths (4 layers, 2 stages, M=4, remat "attn") 24 flash
+    forwards (stage 0 runs its forward twice per microbatch), 16 dQ and 16
+    dK/dV, 84 RMSNorms; interleaved (v=2) 28 / 16 / 16 / 92; gpt2 (LayerNorm)
+    at dp=2, M=2: 24 / 16 / 16 / 0."""
+    from ray_tpu_torch.models.gpt import gpt2_large, llama_7b
+
+    llama = llama_7b(n_layers=4, remat=True, remat_policy="attn")
+    assert chip_smoke.mpmd_launches(llama, 2, 1, 4, 1) == {"flash_fwd": 24, "flash_bwd_dq": 16,
+                                                           "flash_bwd_dkv": 16, "rmsnorm": 84}
+    assert chip_smoke.mpmd_launches(llama, 2, 2, 4, 1) == {"flash_fwd": 28, "flash_bwd_dq": 16,
+                                                           "flash_bwd_dkv": 16, "rmsnorm": 92}
+    assert chip_smoke.mpmd_launches(gpt2_large(n_layers=4, remat=True, remat_policy="attn"), 2, 1, 2, 2) == {
+        "flash_fwd": 24, "flash_bwd_dq": 16, "flash_bwd_dkv": 16, "rmsnorm": 0}
+
+
+def test_mpmd_phase_rehearsal_on_the_cpu():
+    """The mpmd phase's control flow, rehearsed on the CPU with tiny models
+    in a cluster with one advertised GPU and no card (every kernel's plain
+    version, so no launch is counted): the 1F1B run and its interleaved
+    twin with equal losses, the card-vs-CPU parity (both sides on the CPU),
+    and the ZeRO run at two stages x dp=2 whose stage-1 replica is
+    SIGKILLed after step 3, resumed at the step-2 commit with the unkilled
+    run's losses; the session's processes gone after shutdown."""
+    spec = chip_smoke.MPMDSpec(
+        pipe=("llama-7b", {**TRAINER_LLAMA, "n_layers": 4}, (4, 16)), micro=2, warm=1, timed=2,
+        parity=("llama-7b", TRAINER_LLAMA, (2, 16)),
+        kill=("gpt2-small", TRAINER_GPT, (4, 16)), kill_steps=5, kill_after=3,
+        adamw=dict(lr=1e-2, weight_decay=0.1), init={"num_cpus": 6, "num_gpus": 1}, device="cpu")
+    launches = {}
+    chip_smoke.phase_mpmd(launches, None, spec)
+    assert set(launches["mpmd"]) == set(chip_smoke._kernels()) and not any(launches["mpmd"].values())

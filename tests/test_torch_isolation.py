@@ -25,7 +25,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
+# ml_dtypes comes with JAX here but not on the card's machine: numpy has no
+# bf16 there, so the port carries bf16 as tagged uint16 bits.
+FORBIDDEN = ("jax", "jaxlib", "ray_tpu", "ml_dtypes")
 
 
 def _imported_roots(path: Path):
@@ -103,6 +105,8 @@ RUNTIME_COPY = (
     "train/config.py", "train/result.py", "train/session.py", "train/base_trainer.py",
     "train/data_parallel_trainer.py", "train/worker_group.py", "train/backend_executor.py",
     "train/checkpoint.py", "train/elastic", "train/torch_trainer.py", "train/gang_check.py",
+    # MPMD pipeline training: the schedule copied, the rest ported.
+    "train/mpmd",
 )
 # Port-only files inside the copied directories.
 PORT_ONLY = {"core/devices.py", "core/host_names.py"}
@@ -137,6 +141,16 @@ DIVERGES = {
     "parallel/pipeline.py": "the GPipe tick loop in eager torch: a port (PORTS)",
     "train/gang_check.py": "one torch.distributed world, not jax.distributed: a port (PORTS)",
     "train/torch_trainer.py": "the port of train/jax_trainer.py and train/torch_trainer.py (PORTS)",
+    "train/mpmd/__init__.py": "docstring: the port's stage programs, workers and wire (PORTS)",
+    "train/mpmd/zero.py": "the flat master, m and v as torch tensors on the runner's device, the "
+                          "update in torch ops (PORTS)",
+    "train/mpmd/stage.py": "eager torch stage programs on a device, in-place accumulation, launches per "
+                           "step (PORTS)",
+    "train/mpmd/local.py": "torch params seeded on the CPU, a device argument (PORTS)",
+    "train/mpmd/transport.py": "tensors cross as numpy with a dtype tag (bf16 as uint16 bits); bf16 wire "
+                               "cast by torch, not ml_dtypes",
+    "train/mpmd/trainer.py": "GPU-worker stage actors (num_gpus_per_replica), a device option, params "
+                             "seeded in torch, per-replica metrics",
 }
 # Diverging files that are ports, held by their structure, not line by line:
 # a class (its methods in the reference's order, its step()'s calls in
@@ -152,6 +166,11 @@ PORTS = {
     "train/torch_trainer.py": {"module": ["train/jax_trainer.py", "train/torch_trainer.py"],
                                "renames": {"JaxBackend": "TorchBackend", "JaxTrainer": "TorchTrainer",
                                            "jax_utils": "torch_utils"}},
+    "train/mpmd/__init__.py": {"module": ["train/mpmd/__init__.py"]},
+    # The jitted update is the torch update (`_adamw`).
+    "train/mpmd/zero.py": {"module": ["train/mpmd/zero.py"], "renames": {"_adamw_jit": "_adamw"}},
+    "train/mpmd/stage.py": {"module": ["train/mpmd/stage.py"]},
+    "train/mpmd/local.py": {"module": ["train/mpmd/local.py"]},
 }
 
 
@@ -346,6 +365,7 @@ def test_importing_the_port_loads_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.collective.ops, ray_tpu_torch.ops.moe\n"
         "import ray_tpu_torch.parallel.pipeline, ray_tpu_torch.train, ray_tpu_torch.train.elastic\n"
         "import ray_tpu_torch.train.gang_check, ray_tpu_torch.train.torch_trainer\n"
+        "import ray_tpu_torch.train.mpmd, ray_tpu_torch.train.mpmd.trainer\n"
         "new = set(sys.modules) - before\n"
         f"print(sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}))\n"
     )
@@ -359,6 +379,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from ray_tpu_torch.models import gpt
     from ray_tpu_torch.models.convert import params_from_jax
     from ray_tpu_torch.serve.engine import InferenceEngine
+    from ray_tpu_torch.train.mpmd import MPMDOptions, MPMDTrainer, StageRunner, run_local_pipeline
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = gpt.GPTConfig(vocab_size=16, n_layers=1, d_model=8, n_heads=2, d_head=4, d_mlp=16,
@@ -372,6 +393,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: params_from_jax(np_params, cfg),
         lambda: InferenceEngine(cfg, params=params),
         lambda: InferenceEngine(cfg),
+        lambda: StageRunner(cfg, 0, 1, 1, params),
+        lambda: run_local_pipeline(cfg, 1, 1, 1, [np.zeros((1, 3), np.int64)], params=params),
+        lambda: MPMDTrainer(cfg, MPMDOptions(num_stages=1), 1, lambda step: None),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -380,6 +404,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     eng = InferenceEngine(cfg, params=params, device="cpu")
     assert eng.kv["k"].device.type == "cpu"
     assert params_from_jax(np_params, cfg, device="cpu")["w_qkv"].device.type == "cpu"
+    out = run_local_pipeline(cfg, 1, 1, 1, [np.zeros((1, 3), np.int64)], params=params, device="cpu")
+    assert np.isfinite(out["history"][0]["loss"])
+    assert StageRunner(cfg, 0, 1, 1, params, device="cpu").params["w_qkv"].device.type == "cpu"
+    MPMDTrainer(cfg, MPMDOptions(num_stages=1, device="cpu"), 1, lambda step: None)
 
 
 def test_convert_checks_layer_axis():
