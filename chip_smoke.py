@@ -62,8 +62,23 @@ Phases:
               step 3: the gang re-spawns, restores at the common commit and
               repeats an unkilled replicated run's losses bit for bit; ZeRO
               halves the optimizer bytes per replica (restart s, update s,
-              bridge bytes)
-  6d. parallel the mesh path on a one-rank NCCL world (make_mesh(), all six
+              bridge bytes); and 1F1B on a fresh batch every step against
+              the plain step from the same params with the same AdamW,
+              step by step within 2e-2
+  6d. data    the data plane and HF interop on the copied runtime: the
+              trainer phase's gpt2-large step through
+              TorchTrainer(datasets=), its batches streamed through
+              session.get_streaming_ingest from a dataset whose rows the
+              cluster's CPU tasks make, its losses and grad norms bit-equal
+              to the driver's plain step on the same rows (tokens/s beside
+              the in-process feed, ingest wait per step, seconds to the
+              first batch, the ingest's stats); a GPT-2 state dict at
+              gpt2-large widths (HF's names, seeded random) through
+              config_from_hf -> params_from_hf -> TransformersTrainer: the
+              round trip bit for bit, its first loss within 2e-3 of
+              loss_fn, its losses bit-equal to the driver's run of the
+              loop's step, its checkpoint exported with HF's keys and shapes
+  6e. parallel the mesh path on a one-rank NCCL world (make_mesh(), all six
               axes 1): gpt2-medium-moe (8 experts, top-2) training at full
               width through make_train_step(mesh=) (tokens/s, step ms,
               device busy, peak memory, flash launches); the MoE model at 2
@@ -106,11 +121,12 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-PHASES = ("device", "build", "kernels", "parity", "train_parity", "train", "trainer", "mpmd", "parallel",
-          "generate", "engine", "runtime", "serve")
+PHASES = ("device", "build", "kernels", "parity", "train_parity", "train", "trainer", "mpmd", "data",
+          "parallel", "generate", "engine", "runtime", "serve")
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, SXM
 H100_F32_FLOPS = 67e12     # CUDA-core f32 peak, SXM
 H100_BYTES_PER_S = 3.35e12
@@ -1194,10 +1210,12 @@ def _trainer_loop():
     return loop
 
 
-def _trainer_in_process(job: tuple, steps: int, device, seeds, warm: int = 0):
+def _trainer_in_process(job: tuple, steps: int, device, seeds, warm: int = 0, feed=None):
     """The plain step (no mesh) in the driver from the trainer's seeds:
     (losses, grad norms, tokens/s over the steps after `warm`). `seeds`:
-    (params seed, batch seed or None for one batch per step keyed 100 + s)."""
+    (params seed, batch seed or None for one batch per step keyed 100 + s).
+    With `feed` (step -> host [B, S+1] tokens) each step's batch is moved to
+    the device inside the timed loop instead, as a data-plane loop does."""
     import torch
 
     from ray_tpu_torch.models.gpt import init_params, make_train_step
@@ -1206,15 +1224,19 @@ def _trainer_in_process(job: tuple, steps: int, device, seeds, warm: int = 0):
     cfg = _trainer_cfg(job)
     params = init_params(cfg, seed=seeds[0], device=device)
     step = make_train_step(cfg, AdamW(params.values(), **TRAINER_ADAMW, mu_dtype=torch.bfloat16))
-    batches = [_trainer_batch(cfg, job[2], seeds[1] if seeds[1] is not None else 100 + s, device)
-               for s in range(steps)]
+    made = [] if feed else [_trainer_batch(cfg, job[2], seeds[1] if seeds[1] is not None else 100 + s, device)
+                            for s in range(steps)]
+
+    def batch(s):
+        return {"tokens": torch.as_tensor(feed(s)).to(device)} if feed else made[s]
+
     losses, norms, t0 = [], [], None
-    for s, batch in enumerate(batches):
+    for s in range(steps):
         if s == warm:
             if device != "cpu":
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
-        _, m = step(params, batch)
+        _, m = step(params, batch(s))
         losses.append(m["loss"].item())
         norms.append(m["grad_norm"].item())
     if device != "cpu":
@@ -1311,7 +1333,8 @@ def phase_trainer(launches: dict, spec: TrainerSpec | None = None) -> dict:
     run whose worker is SIGKILLed after step `kill_after`, which restarts
     on a new worker from its last elastic checkpoint and repeats the
     unkilled run's losses bit for bit. Returns the GPipe step's timing
-    ({"step_ms", "tokens_per_s"}: report to report, after the warm-up)."""
+    ({"step_ms", "tokens_per_s"}: report to report, after the warm-up) and
+    the in-process plain step's tokens/s (`in_process_tokens_per_s`)."""
     import tempfile
     import threading
 
@@ -1378,7 +1401,8 @@ def phase_trainer(launches: dict, spec: TrainerSpec | None = None) -> dict:
             f"{pipe[0]['serial']:.6f} (rel diff {rel:.2e}); launches per step {pipe[-1]['launches']}")
         gaps = [b["t"] - a["t"] for a, b in zip(pipe, pipe[1:])][max(spec.warm - 1, 0):]
         gpipe = {"step_ms": sum(gaps) / len(gaps) * 1e3,
-                 "tokens_per_s": spec.pipe[2][0] * spec.pipe[2][1] * len(gaps) / sum(gaps)}
+                 "tokens_per_s": spec.pipe[2][0] * spec.pipe[2][1] * len(gaps) / sum(gaps),
+                 "in_process_tokens_per_s": in_process_tok_s}
         log(f"trainer pipeline step {gpipe['step_ms']:.1f} ms, {gpipe['tokens_per_s']:.1f} tokens/s (report to "
             f"report, {len(gaps)} steps after {spec.warm} warm-up)")
         if rel > 2e-3 or not (math.isfinite(pipe[-1]["loss"]) and pipe[-1]["loss"] < pipe[0]["loss"]):
@@ -1486,9 +1510,11 @@ class MPMDSpec:
     chunks: int = 2
     warm: int = 2
     timed: int = 4
-    # The 1F1B runs' batches: step s takes batch s mod `pool`. On a new
-    # batch every step the loss rose at llama-7b widths (11.17 -> 11.47 in
-    # 6 steps on an H100): each AdamW step at lr 3e-4 fits its own batch.
+    # The pool runs' batches: step s takes batch s mod `pool`, and the loss
+    # falls as the model fits them. On a new batch every step (the `fresh`
+    # run) it does not fall in 6 steps at lr 3e-4 (llama-7b widths: 11.17,
+    # 19.78 at step 3, 11.47 on an H100) and the plain step from the same
+    # params does the same: that run is held to the plain step instead.
     pool: int = 2
     parity: tuple = ("llama-7b", {"n_layers": 2, "dtype": "float32"}, (2, 128))
     parity_micro: int = 2
@@ -1509,8 +1535,10 @@ def mpmd_launches(cfg, S: int, v: int, M: int, dp: int) -> dict:
     non-last chunk runs its forward twice per microbatch (the F op, and the
     recompute in `fwd_bwd`), the last chunk once (in `loss_bwd`); remat
     "attn" saves the flash outputs, so the checkpointed block's backward
-    recomputes the RMSNorms but no flash forward; every layer runs one dQ
-    and one dK/dV; the last chunk adds the final RMSNorm."""
+    recomputes the RMSNorms but no flash forward, full remat reruns it too;
+    every layer runs one dQ and one dK/dV; the last chunk adds the final
+    RMSNorm. One stage, one chunk, one microbatch (S = v = M = dp = 1) is
+    the plain `make_train_step`'s step."""
     P, L = S * v, cfg.n_layers
     l = L // P
     remat = 1 if cfg.remat else 0
@@ -1524,8 +1552,9 @@ def mpmd_launches(cfg, S: int, v: int, M: int, dp: int) -> dict:
 
 def _mpmd_batch(cfg, shape, seed: int):
     """[B, S+1] int64 tokens drawn by numpy from `seed` (a step of a run),
-    skewed toward low ids (V·u³, u uniform): a unigram a model learns in a
-    few steps, so the loss falls on a new batch every step."""
+    skewed toward low ids (V·u³, u uniform). At lr 3e-4 from the 0.02 init
+    the loss does not fall on a new batch every step within 6 steps, in the
+    plain step as in the pipeline; it falls on a pool of a few batches."""
     import numpy as np
 
     B, S = shape
@@ -1577,6 +1606,33 @@ def _mpmd_parity(spec: MPMDSpec, counts: dict) -> None:
         raise AssertionError(f"mpmd parity: launches {run}, predicted {want}")
     if on_card:
         torch.cuda.empty_cache()
+
+
+def _mpmd_plain(cfg, spec: MPMDSpec, seed: int, batch_seed: int, steps: int) -> list:
+    """The plain step (`make_train_step`, no pipeline) in the driver from
+    the MPMD run's params (`init_params(seed)` on the CPU) with its AdamW
+    (`spec.adamw` and MPMDOptions' betas and eps, f32 moments), on the
+    batches the MPMD run takes (`batch_seed + s`): its losses, step by
+    step."""
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.optim import AdamW
+    from ray_tpu_torch.train.mpmd import MPMDOptions
+
+    o = MPMDOptions(**spec.adamw)
+    dev = "cuda" if spec.device is None else spec.device
+    params = {k: t.to(dev) for k, t in gpt.init_params(cfg, seed=seed, device="cpu").items()}
+    step = gpt.make_train_step(cfg, AdamW(params.values(), lr=o.lr, betas=o.betas, eps=o.eps,
+                                          weight_decay=o.weight_decay))
+    losses = []
+    for s in range(steps):
+        tokens = torch.as_tensor(_mpmd_batch(cfg, spec.pipe[2], batch_seed + s)).to(dev)
+        losses.append(step(params, {"tokens": tokens})[1]["loss"].item())
+    del params, step
+    if spec.device is None:
+        torch.cuda.empty_cache()
+    return losses
 
 
 def _mpmd_fit(cfg, spec: MPMDSpec, storage: str, name: str, job: tuple, seed: int, batch_seed: int,
@@ -1659,7 +1715,9 @@ def phase_mpmd(launches: dict, gpipe: dict | None = None, spec: MPMDSpec | None 
     (num_gpus=1/(S*dp) each) exchanging activations and gradients over
     compiled-DAG edges, each stage's dp replicas running the ZeRO update
     over the host-plane collectives. The 1F1B cell (the trainer phase's
-    GPipe cell) and its interleaved twin; the card-vs-CPU parity in the
+    GPipe cell) and its interleaved twin on a pool of batches, and 1F1B on
+    a fresh batch every step held to the plain step from the same params
+    with the same AdamW (2e-2 a step); the card-vs-CPU parity in the
     driver; gpt2-large widths at dp=2 (tied: the bridge runs) with a
     stage-1 replica SIGKILLed after the `kill_after` result, resumed at the
     common commit. Launches are counted in each actor, per step."""
@@ -1697,6 +1755,7 @@ def phase_mpmd(launches: dict, gpipe: dict | None = None, spec: MPMDSpec | None 
     del params, full
     if on_card:
         torch.cuda.empty_cache()
+    plain_losses = _mpmd_plain(cfg, spec, seed=7, batch_seed=100, steps=steps)
     free_before = torch.cuda.mem_get_info()[0] if on_card else None
 
     storage = tempfile.mkdtemp(prefix="rtput-mpmd-")
@@ -1707,16 +1766,18 @@ def phase_mpmd(launches: dict, gpipe: dict | None = None, spec: MPMDSpec | None 
     try:
         log(f"mpmd: cluster up in {time.perf_counter() - t0:.2f} s, resources {rt.cluster_resources()}")
 
-        # 2. 1F1B and interleaved 1F1B at llama-7b widths.
+        # 2. 1F1B and interleaved 1F1B at llama-7b widths on the pool's
+        # batches, then 1F1B on a fresh batch every step.
         runs = {}
-        for chunks in (1, v):
-            res = _mpmd_fit(cfg, spec, storage, f"pipe-v{chunks}", spec.pipe, seed=7, batch_seed=100, steps=steps,
-                            pool=spec.pool, dp=1, num_microbatches=M, num_chunks=chunks, zero=True,
+        for name, chunks, pool in (("v1", 1, spec.pool), (f"v{v}", v, spec.pool), ("fresh", 1, None)):
+            res = _mpmd_fit(cfg, spec, storage, f"pipe-{name}", spec.pipe, seed=7, batch_seed=100, steps=steps,
+                            pool=pool, dp=1, num_microbatches=M, num_chunks=chunks, zero=True,
                             num_gpus_per_replica=1.0 / S)
-            runs[chunks] = res
-            _wait_card_released(free_before, f"pipe v={chunks}")
+            runs[name] = res
+            _wait_card_released(free_before, f"pipe {name}")
         B, Sq = spec.pipe[2]
-        for chunks, res in runs.items():
+        for name, res in runs.items():
+            chunks = v if name == f"v{v}" else 1
             hist = res["history"]
             _mpmd_sum(counts, hist)
             timed = hist[spec.warm:]
@@ -1728,7 +1789,8 @@ def phase_mpmd(launches: dict, gpipe: dict | None = None, spec: MPMDSpec | None 
             bubble = sum(h["bubble_frac"] for h in timed) / len(timed)
             against = "" if not gpipe else \
                 f"; the GPipe cell {gpipe['step_ms']:.1f} ms, {gpipe['tokens_per_s']:.1f} tokens/s"
-            log(f"mpmd 1F1B {spec.pipe[0]} {spec.pipe[1]} B={B} S={Sq} M={M} stages={S} v={chunks} dp=1 ZeRO: loss "
+            log(f"mpmd 1F1B {spec.pipe[0]} {spec.pipe[1]} B={B} S={Sq} M={M} stages={S} v={chunks} dp=1 ZeRO, "
+                f"{'a fresh batch every step' if name == 'fresh' else f'the pool of {spec.pool} batches'}: loss "
                 f"{hist[0]['loss']:.6f} -> {hist[-1]['loss']:.6f} over {len(hist)} steps; step "
                 f"{step_s * 1e3:.1f} ms, {B * Sq / step_s:.1f} tokens/s (mean of {len(timed)} after {spec.warm} "
                 f"warm-up){against}; "
@@ -1740,18 +1802,26 @@ def phase_mpmd(launches: dict, gpipe: dict | None = None, spec: MPMDSpec | None 
                 bad = [_mpmd_step_launches(h) for h in hist if _mpmd_step_launches(h) != want]
                 if bad:
                     raise AssertionError(f"mpmd v={chunks}: launches per step {bad[0]}, predicted {want}")
-        one = runs[1]["history"]
+        one = runs["v1"]["history"]
         rel = abs(one[0]["loss"] - serial) / abs(serial)
         log(f"mpmd 1F1B first loss {one[0]['loss']:.6f} vs loss_fn {serial:.6f} (rel diff {rel:.2e})")
         if rel > 2e-3 or not (math.isfinite(one[-1]["loss"]) and one[-1]["loss"] < one[0]["loss"]):
             raise AssertionError(f"mpmd 1F1B: first loss {rel:.2e} from loss_fn (tol 2e-3), or the loss "
                                  f"{one[0]['loss']} -> {one[-1]['loss']} is not finite and falling")
-        l1, l2 = [h["loss"] for h in one], [h["loss"] for h in runs[v]["history"]]
+        l1, l2 = [h["loss"] for h in one], [h["loss"] for h in runs[f"v{v}"]["history"]]
         worst = max(abs(a - b) / abs(a) for a, b in zip(l1, l2))
         log(f"mpmd interleaved v={v} losses vs v=1: "
             f"{'bit for bit' if l1 == l2 else 'NOT bit-equal'} (worst rel diff {worst:.2e})")
         if worst > 1e-3 or len(l1) != len(l2):
             raise AssertionError(f"mpmd interleaved: losses {l2} vs v=1 {l1} (tol 1e-3)")
+        fresh = [h["loss"] for h in runs["fresh"]["history"]]
+        diffs = [abs(a - b) / abs(b) for a, b in zip(fresh, plain_losses)]
+        log(f"mpmd 1F1B on fresh batches vs the plain step (same params, batches and AdamW): losses "
+            f"{[round(x, 6) for x in fresh]} vs {[round(x, 6) for x in plain_losses]}; rel diff by step "
+            f"{[f'{d:.2e}' for d in diffs]}")
+        if len(fresh) != len(plain_losses) or max(diffs) > 2e-2:
+            raise AssertionError(f"mpmd 1F1B on fresh batches: losses {fresh} vs the plain step's {plain_losses} "
+                                 "(tol 2e-2 relative)")
 
         # 3. ZeRO over dp with the bridge: the unkilled replicated run, then
         # the ZeRO run with a stage-1 replica SIGKILLed.
@@ -1840,6 +1910,384 @@ def phase_mpmd(launches: dict, gpipe: dict | None = None, spec: MPMDSpec | None 
         f"{time.perf_counter() - t_phase:.1f} s")
     if on_card and not all(counts.get(k, 0) > 0 for k in _kernels()):
         raise AssertionError(f"mpmd: a kernel of the path was not launched: {counts}")
+
+
+# ------------------------------------------------------------------ data
+DATA_SEED = 1000  # the feed's row r: default_rng(DATA_SEED + r)
+# The feed's dataset holds this many times the rows its steps take, so the
+# loop shuts the ingest down mid-epoch with its producer parked on a full
+# queue. (The trainer's split runs the whole plan in the driver before the
+# gang starts, so the executor itself overlaps no step.)
+DATA_ROWS_FACTOR = 4
+HF_SEED = 5  # the HF state dict's weights and its token rows
+HF_LR = 5e-5  # TransformersTrainer's AdamW lr
+
+
+@dataclasses.dataclass
+class DataSpec:
+    """What the data phase trains. `feed`: the trainer phase's gpt2-large
+    job (model, overrides, (B, S)) through `TorchTrainer(datasets=)`, its
+    batches streamed from `ray_tpu_torch.data.range(DATA_ROWS_FACTOR * B *
+    (warm + timed), parallelism=parallelism).map_batches(fn)` (fn: row r's
+    [S+1] tokens from `default_rng(DATA_SEED + r)`, made in the cluster's
+    CPU tasks). `hf`: GPT2Config's fields of an HF GPT-2 state dict made by
+    torch from `HF_SEED`, trained through `TransformersTrainer` for
+    `hf_steps` steps of `hf_batch` rows out of `hf_rows` (int32 [S+1]).
+    `device` None: the card; the CPU rehearsal
+    (tests/test_torch_chip_smoke.py) passes tiny models on "cpu" and one
+    torch thread (`threads`)."""
+
+    feed: tuple = ("gpt2-large", {}, (13, 1024))
+    warm: int = 2
+    timed: int = 5
+    parallelism: int = 8
+    hf: dict = dataclasses.field(default_factory=lambda: dict(
+        n_embd=1280, n_layer=36, n_head=20, n_inner=5120, vocab_size=50257, n_positions=1024))
+    hf_rows: int = 64
+    hf_batch: int = 8
+    hf_steps: int = 4
+    init: dict = dataclasses.field(default_factory=lambda: {"log_to_driver": False})
+    device: str | None = None
+    threads: int | None = None
+
+
+def _data_fn(seed: int, vocab: int, width: int):
+    """The feed's map_batches fn (a closure, so cloudpickle ships it by
+    value to the CPU workers): row r's `width` int64 tokens drawn from
+    `np.random.default_rng(seed + r)`, beside its id."""
+
+    def fn(batch):
+        import numpy as np
+
+        ids = batch["id"]
+        tokens = [np.random.default_rng(seed + int(r)).integers(0, vocab, width) for r in ids]
+        return {"id": ids, "tokens": np.stack(tokens) if tokens else np.zeros((0, width), np.int64)}
+
+    return fn
+
+
+def _data_loop():
+    """The feed's train_loop_per_worker: the plain step (the trainer
+    phase's in-process step) on batches taken through
+    `session.get_streaming_ingest` and moved to the card one by one; every
+    step reports its loss, grad norm, ingest wait, the row ids it took and
+    the kernel launches it made (counts set to 0 just before the step and
+    read just after). It stops after its steps, mid-epoch, and the `with`
+    shuts the ingest down."""
+
+    def loop(config):
+        import time
+
+        import torch
+
+        from ray_tpu_torch import train
+        from ray_tpu_torch.kernels.flash_bwd import flash_bwd_dkv, flash_bwd_dq
+        from ray_tpu_torch.kernels.flash_fwd import flash_fwd
+        from ray_tpu_torch.kernels.rmsnorm import rmsnorm_fwd
+        from ray_tpu_torch.models import gpt
+        from ray_tpu_torch.optim import AdamW
+        from ray_tpu_torch.train import session
+        from ray_tpu_torch.train import torch as tt
+
+        t_loop = time.time()
+        if config["threads"]:
+            torch.set_num_threads(config["threads"])
+        kernels = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv,
+                   "rmsnorm": rmsnorm_fwd}
+        dev = tt.get_device() if config["device"] is None else torch.device(config["device"])
+        if config["device"] is None and dev.type != "cuda":
+            raise RuntimeError("no CUDA device on the trainer's worker")
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+
+        cfg, (B, S) = config["feed"]
+        params = gpt.init_params(cfg, seed=0, device=dev)
+        step = gpt.make_train_step(cfg, AdamW(params.values(), **config["adamw"], mu_dtype=torch.bfloat16))
+        n = config["warm"] + config["timed"]
+        t0 = None
+        with session.get_streaming_ingest("train", batch_size=B) as ing:
+            t_open = time.time()
+            for i in range(n):
+                if i == config["warm"]:
+                    sync()
+                    t0 = time.perf_counter()
+                tw = time.perf_counter()
+                batch = ing.next_batch()
+                wait_ms = (time.perf_counter() - tw) * 1e3
+                t_batch = time.time()
+                tokens = torch.as_tensor(batch["tokens"]).to(dev)
+                for k in kernels.values():
+                    k.launches = 0
+                _, m = step(params, {"tokens": tokens})
+                launches = {name: k.launches for name, k in kernels.items()}
+                train.report({"job": "feed", "i": i, "loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                              "wait_ms": wait_ms, "ids": batch["id"].tolist(), "launches": launches,
+                              "t_batch": t_batch, "t_open": t_open, "t_loop": t_loop})
+            sync()
+            elapsed = time.perf_counter() - t0
+            stats = ing.stats()
+        train.report({"job": "feed_summary", "tokens_per_s": B * S * config["timed"] / elapsed, "stats": stats,
+                      "device": str(dev)})
+
+    return loop
+
+
+def _hf_loop():
+    """TransformersTrainer's own loop (`huggingface._default_train_loop`),
+    each of its reports stamped with the time and the kernel launches since
+    the one before (the counts are set to 0 just before the loop and at each
+    report: a report follows each step). `config["threads"]`, when set,
+    fixes the worker's torch threads (the CPU rehearsal)."""
+
+    def loop(config):
+        import time
+
+        import torch
+
+        from ray_tpu_torch.kernels.flash_bwd import flash_bwd_dkv, flash_bwd_dq
+        from ray_tpu_torch.kernels.flash_fwd import flash_fwd
+        from ray_tpu_torch.kernels.rmsnorm import rmsnorm_fwd
+        from ray_tpu_torch.train import huggingface
+        from ray_tpu_torch.train.session import get_session
+
+        if config.get("threads"):
+            torch.set_num_threads(config["threads"])
+        kernels = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv,
+                   "rmsnorm": rmsnorm_fwd}
+        session = get_session()
+        report = session.report
+
+        def stamped(metrics, checkpoint=None):
+            launches = {name: k.launches for name, k in kernels.items()}
+            for k in kernels.values():
+                k.launches = 0
+            report({**metrics, "t": time.time(), "launches": launches}, checkpoint)
+
+        session.report = stamped
+        for k in kernels.values():
+            k.launches = 0
+        huggingface._default_train_loop(config)
+
+    return loop
+
+
+def _hf_state_dict(hf: dict, seed: int, device) -> dict:
+    """An HF GPT-2 state dict (HF's names, Conv1D [in, out] layouts,
+    lm_head tied to wte), normal(0, 0.02) weights and (1 + them) LayerNorm
+    scales, drawn by torch on `device` from `seed` and returned on the CPU
+    in f32."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    E, F, V, P = hf["n_embd"], hf["n_inner"], hf["vocab_size"], hf["n_positions"]
+
+    def r(*shape, base=0.0):
+        return (torch.randn(shape, generator=gen, device=device) * 0.02 + base).cpu()
+
+    sd = {"transformer.wte.weight": r(V, E), "transformer.wpe.weight": r(P, E),
+          "transformer.ln_f.weight": r(E, base=1.0), "transformer.ln_f.bias": r(E)}
+    for i in range(hf["n_layer"]):
+        h = f"transformer.h.{i}"
+        sd.update({f"{h}.ln_1.weight": r(E, base=1.0), f"{h}.ln_1.bias": r(E),
+                   f"{h}.attn.c_attn.weight": r(E, 3 * E), f"{h}.attn.c_attn.bias": r(3 * E),
+                   f"{h}.attn.c_proj.weight": r(E, E), f"{h}.attn.c_proj.bias": r(E),
+                   f"{h}.ln_2.weight": r(E, base=1.0), f"{h}.ln_2.bias": r(E),
+                   f"{h}.mlp.c_fc.weight": r(E, F), f"{h}.mlp.c_fc.bias": r(F),
+                   f"{h}.mlp.c_proj.weight": r(F, E), f"{h}.mlp.c_proj.bias": r(E)})
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]
+    return sd
+
+
+def _hf_in_process(params: dict, cfg, rows, spec: DataSpec, device):
+    """In the driver, the HF loop's step (`make_train_step` with
+    `AdamW(lr, weight_decay=0.01)`, the loop's default) on the loop's
+    batches (rows in order, `hf_batch` at a time): the first batch's
+    `loss_fn`, the losses, tokens/s after the first step."""
+    import torch
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.optim import AdamW
+
+    p = {k: torch.tensor(v, device=device) for k, v in params.items()}
+    b = spec.hf_batch
+    batches = [torch.as_tensor(rows[i * b:(i + 1) * b]).to(device) for i in range(spec.hf_steps)]
+    with torch.no_grad():
+        first = gpt.loss_fn(p, {"tokens": batches[0]}, cfg).item()
+    step = gpt.make_train_step(cfg, AdamW(p.values(), lr=HF_LR, weight_decay=0.01))
+    losses, t0 = [], None
+    for i, tokens in enumerate(batches):
+        losses.append(step(p, {"tokens": tokens})[1]["loss"].item())
+        if i == 0:
+            t0 = time.perf_counter()
+    tok_s = b * (rows.shape[1] - 1) * (spec.hf_steps - 1) / (time.perf_counter() - t0)
+    del p, step, batches
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return first, losses, tok_s
+
+
+def phase_data(launches: dict, trainer: dict | None = None, spec: DataSpec | None = None) -> None:
+    """The data plane and HF interop feeding gpt2-large training on the
+    copied runtime (`ray_tpu_torch.init()` in cluster mode, one GPU worker
+    per trainer). The feed cell: the trainer phase's step through
+    `TorchTrainer(datasets={"train": ds})`, batches through
+    `session.get_streaming_ingest`, its rows made by the cluster's CPU
+    tasks; its losses and grad norms bit-equal to the driver's plain step
+    on the same rows in the same order. The HF cell: a GPT-2 state dict at
+    gpt2-large widths through `config_from_hf` -> `params_from_hf` ->
+    `TransformersTrainer` (its own loop); the round trip bit for bit, its
+    first loss within 2e-3 of `loss_fn`, its losses bit-equal to the
+    driver's run of the loop's step, and its checkpoint exported with HF's
+    keys and shapes. `trainer`: the trainer phase's return, for its
+    in-process tokens/s."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+    from ray_tpu_torch.core import api
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+    from ray_tpu_torch.train.huggingface import (
+        TransformersTrainer,
+        config_from_hf,
+        params_from_hf,
+        params_to_hf_state_dict,
+    )
+
+    spec = spec or DataSpec()
+    on_card = spec.device is None
+    device = "cuda" if on_card else spec.device
+    t_phase = time.perf_counter()
+    if spec.threads:
+        torch.set_num_threads(spec.threads)
+
+    # 1. The driver's own runs first, each freed before the next.
+    cfg = _trainer_cfg(spec.feed)
+    B, S = spec.feed[2]
+    n = spec.warm + spec.timed
+    fn = _data_fn(DATA_SEED, cfg.vocab_size, S + 1)
+    order = [list(range(i * B, (i + 1) * B)) for i in range(n)]  # preserve_order: the rows in order
+    want_loss, want_norm, in_process_tok_s = _trainer_in_process(
+        spec.feed, n, device, (0, None), warm=spec.warm, feed=lambda s: fn({"id": np.asarray(order[s])})["tokens"])
+
+    hf_cfg = types.SimpleNamespace(**spec.hf)
+    t0 = time.perf_counter()
+    sd = _hf_state_dict(spec.hf, HF_SEED, device)
+    hcfg = config_from_hf(hf_cfg)
+    params, _ = params_from_hf(sd, hcfg)
+    back = params_to_hf_state_dict(params, hcfg, hf_vocab_size=hf_cfg.vocab_size)
+    exact = set(back) == set(sd) and all(back[k].dtype == v.dtype and torch.equal(back[k], v) for k, v in sd.items())
+    n_params = sum(v.numel() for k, v in sd.items() if k != "lm_head.weight")
+    log(f"data hf: state dict of {n_params / 1e6:.1f} M params ({len(sd)} tensors) -> config_from_hf -> "
+        f"params_from_hf -> params_to_hf_state_dict: {'bit for bit' if exact else 'NOT equal'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not exact:
+        raise AssertionError("data hf: params_to_hf_state_dict(params_from_hf(sd)) differs from sd")
+    del back
+    rows = np.random.default_rng(HF_SEED).integers(0, hf_cfg.vocab_size, (spec.hf_rows, hcfg.max_seq + 1)) \
+        .astype(np.int32)
+    hf_first, hf_want, hf_in_process_tok_s = _hf_in_process(params, hcfg, rows, spec, device)
+
+    storage = tempfile.mkdtemp(prefix="rtput-data-")
+    t0 = time.perf_counter()
+    rt.init(**spec.init)
+    backend = api._global_runtime().backend
+    session_dir, controller = backend.session_dir, backend._controller_proc.pid
+    feed_counts: dict = {}
+    hf_counts: dict = {}
+    try:
+        log(f"data: cluster up in {time.perf_counter() - t0:.2f} s, resources {rt.cluster_resources()}")
+
+        # 2. The feed cell.
+        rows_total = DATA_ROWS_FACTOR * B * n
+        ds = data.range(rows_total, parallelism=spec.parallelism).map_batches(fn)
+        config = {"feed": (cfg, (B, S)), "warm": spec.warm, "timed": spec.timed, "adamw": TRAINER_ADAMW,
+                  "device": spec.device, "threads": spec.threads}
+        t_fit = time.time()
+        result = TorchTrainer(_data_loop(), train_loop_config=config, datasets={"train": ds},
+                              scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                              run_config=RunConfig(storage_path=storage, name="feed")).fit()
+        fit_s = time.time() - t_fit
+        if result.error:
+            raise AssertionError(f"data feed: the run failed: {result.error}")
+        steps = [m for m in result.metrics_history if m["job"] == "feed"]
+        summary = next(m for m in result.metrics_history if m["job"] == "feed_summary")
+        _sum_launches(feed_counts, steps)
+        if [m["ids"] for m in steps] != order:
+            raise AssertionError(f"data feed: rows taken {[m['ids'][:3] for m in steps]}..., want {order}")
+        _check_equal("feed losses", [m["loss"] for m in steps], want_loss)
+        _check_equal("feed grad norms", [m["grad_norm"] for m in steps], want_norm)
+        waits = sorted(m["wait_ms"] for m in steps)
+        want_launches = mpmd_launches(cfg, 1, 1, 1, 1)
+        stats = summary["stats"]
+        log(f"data feed {spec.feed[0]} B={B} S={S} on {summary['device']}: {rows_total} rows in "
+            f"{spec.parallelism} blocks, {n} steps ({spec.warm} warm-up) took rows {order[0][0]}..{order[-1][-1]} in "
+            f"order; losses and grad norms equal the in-process plain step's bit for bit ({want_loss[0]:.6f} -> "
+            f"{want_loss[-1]:.6f}); {summary['tokens_per_s']:.1f} tokens/s through the data plane, "
+            f"{in_process_tok_s:.1f} in process here ({summary['tokens_per_s'] / in_process_tok_s:.3f}x)"
+            + (f", the trainer phase's in-process step {trainer['in_process_tokens_per_s']:.1f}" if trainer else "")
+            + f"; ingest wait per step p50 {waits[len(waits) // 2]:.3f} ms, max {waits[-1]:.3f} ms (by step "
+            f"{[round(m['wait_ms'], 3) for m in steps]}); first batch {steps[0]['t_batch'] - t_fit:.2f} s after fit() "
+            f"({steps[0]['t_batch'] - steps[0]['t_open']:.3f} s after the ingest opened, worker loop began "
+            f"{steps[0]['t_loop'] - t_fit:.2f} s after fit()); fit() {fit_s:.1f} s; StreamingIngest.stats() {stats}; "
+            f"launches per step {steps[-1]['launches']} (predicted {want_launches}; the trainer phase's "
+            f"36 / 36 / 36 / 0)")
+        if on_card and any(m["launches"] != want_launches for m in steps):
+            raise AssertionError(f"data feed: launches per step {[m['launches'] for m in steps]}, predicted "
+                                 f"{want_launches}")
+
+        # 3. The HF cell.
+        t_fit = time.perf_counter()
+        result = TransformersTrainer(
+            model=(params, hcfg), datasets={"train": data.from_numpy(rows, column="tokens")},
+            train_loop_config={"steps": spec.hf_steps, "batch_size": spec.hf_batch, "lr": HF_LR,
+                               "device": spec.device, "threads": spec.threads},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(storage_path=storage, name="hf"), train_loop_per_worker=_hf_loop()).fit()
+        hf_fit_s = time.perf_counter() - t_fit
+        if result.error:
+            raise AssertionError(f"data hf: the run failed: {result.error}")
+        hist = result.metrics_history
+        steps = [m for m in hist if not m.get("done")]
+        _sum_launches(hf_counts, hist)
+        got = [m["loss"] for m in steps]
+        rel = abs(got[0] - hf_first) / abs(hf_first)
+        _check_equal("hf losses", got, hf_want)
+        final = result.checkpoint.to_dict()
+        exported = params_to_hf_state_dict(final["params"], hcfg, hf_vocab_size=hf_cfg.vocab_size)
+        shapes_ok = {k: tuple(v.shape) for k, v in exported.items()} == {k: tuple(v.shape) for k, v in sd.items()}
+        moved = [k for k, v in exported.items() if not torch.equal(v, sd[k])]
+        gaps = [b["t"] - a["t"] for a, b in zip(steps, steps[1:])]
+        hf_tok_s = spec.hf_batch * hcfg.max_seq * len(gaps) / sum(gaps) if gaps else float("nan")
+        want_launches = mpmd_launches(hcfg, 1, 1, 1, 1)
+        log(f"data hf gpt2 {spec.hf} -> {hcfg.vocab_size}-row vocab, {hcfg.dtype}, remat {hcfg.remat} policy "
+            f"{hcfg.remat_policy}, attn {hcfg.attn_impl}: TransformersTrainer fit() {hf_fit_s:.1f} s; losses "
+            f"{[round(x, 6) for x in got]} equal the in-process run of the loop's step bit for bit; first loss "
+            f"{got[0]:.6f} vs loss_fn {hf_first:.6f} (rel diff {rel:.2e}); {hf_tok_s:.1f} tokens/s (report to "
+            f"report after the first step), {hf_in_process_tok_s:.1f} in process; checkpoint exports "
+            f"{len(exported)} tensors with HF's keys and shapes: {shapes_ok}, {len(moved)} of them moved by "
+            f"training; launches per step {[m['launches'] for m in steps]} (predicted {want_launches})")
+        if rel > 2e-3 or not shapes_ok or not moved or not final.get("hf_state_dict_ready"):
+            raise AssertionError(f"data hf: first loss {rel:.2e} from loss_fn (tol 2e-3), export shapes equal "
+                                 f"{shapes_ok}, tensors moved {len(moved)}")
+        if on_card and any(m["launches"] != want_launches for m in steps):
+            raise AssertionError(f"data hf: launches per step {[m['launches'] for m in steps]}, predicted "
+                                 f"{want_launches}")
+        del final, exported
+    finally:
+        left = _end_session(controller, session_dir)
+        shutil.rmtree(storage, ignore_errors=True)
+    if left:
+        raise AssertionError(f"data: processes outlived shutdown (killed): {left}")
+    launches["data"], launches["hf"] = feed_counts, hf_counts
+    log(f"data launches: feed {feed_counts}, hf {hf_counts}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    for path, counts in (("feed", feed_counts), ("hf", hf_counts)):
+        if on_card and not all(counts.get(k, 0) > 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+            raise AssertionError(f"data {path}: a flash kernel of the path was not launched: {counts}")
 
 
 # ------------------------------------------------------------------ parallel
@@ -2976,11 +3424,13 @@ def main(argv=None) -> int:
         phase_train_parity(launches)
     if "train" in phases:
         phase_train(launches)
-    gpipe = None
+    trained = None
     if "trainer" in phases:
-        gpipe = phase_trainer(launches)
+        trained = phase_trainer(launches)
     if "mpmd" in phases:
-        phase_mpmd(launches, gpipe)
+        phase_mpmd(launches, trained)
+    if "data" in phases:
+        phase_data(launches, trained)
     if "parallel" in phases:
         phase_parallel(launches)
     generated = served = None

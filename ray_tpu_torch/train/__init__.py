@@ -9,8 +9,8 @@ The port's trainer is `TorchTrainer`: one worker per card, the gang joined
 in one torch.distributed world (NCCL on GPU workers, gloo on CPU workers),
 and `torch_utils.get_mesh()` builds the gang-wide `DeviceMesh` the model's
 `mesh=` path runs on. The reference (`ray_tpu/train/__init__.py:1-14`)
-gangs one JAX worker per host instead; its GBDT trainers, `JaxTrainer` and
-`huggingface` are not ported here.
+gangs one JAX worker per host instead; its GBDT trainers and `JaxTrainer`
+are not ported here.
 """
 
 from .config import (
@@ -32,9 +32,10 @@ from .session import (
 from .result import Result
 from .base_trainer import BaseTrainer
 from .data_parallel_trainer import DataParallelTrainer
-# reference: GBDTTrainer, XGBoostTrainer, JaxTrainer and huggingface
-# (`ray_tpu/train/__init__.py:35-38`) are not ported yet.
+# reference: GBDTTrainer, XGBoostTrainer and JaxTrainer
+# (`ray_tpu/train/__init__.py:35-36`) are not ported yet.
 from . import elastic  # noqa: F401 — fault-tolerant gang training
+from . import huggingface  # noqa: F401 — HF checkpoint interop (GPT-2 family)
 from . import torch_trainer as torch  # ray_tpu_torch.train.torch.prepare_model(...)
 from .torch_trainer import TorchTrainer
 

@@ -283,3 +283,83 @@ def test_mpmd_phase_rehearsal_on_the_cpu():
     launches = {}
     chip_smoke.phase_mpmd(launches, None, spec)
     assert set(launches["mpmd"]) == set(chip_smoke._kernels()) and not any(launches["mpmd"].values())
+
+
+def test_data_phase_is_after_mpmd():
+    assert chip_smoke.PHASES.index("data") == chip_smoke.PHASES.index("mpmd") + 1
+
+
+def test_data_rows_are_reproducible_from_their_seeds():
+    """The feed's map_batches fn draws row r from default_rng(seed + r)
+    alone: the same row whatever block or batch it arrives in, so the
+    driver recomputes the rows the trainer took."""
+    fn = chip_smoke._data_fn(chip_smoke.DATA_SEED, 50304, 1025)
+    out = fn({"id": np.array([3, 1, 7], np.int64)})
+    assert out["tokens"].shape == (3, 1025) and out["tokens"].dtype == np.int64
+    assert out["id"].tolist() == [3, 1, 7]
+    for r, row in zip((3, 1, 7), out["tokens"]):
+        assert np.array_equal(row, np.random.default_rng(1000 + r).integers(0, 50304, 1025))
+    assert np.array_equal(fn({"id": np.array([7])})["tokens"][0], out["tokens"][2])
+    assert fn({"id": np.zeros(0, np.int64)})["tokens"].shape == (0, 1025)
+
+
+def test_step_launch_prediction():
+    """One plain step's launches: gpt2-large with remat "attn" (the feed
+    cell) 36 / 36 / 36 / 0, as the trainer phase; with full remat (the HF
+    cell, config_from_hf's default) the backward reruns each flash forward,
+    72 / 36 / 36 / 0; llama (RMSNorm) recomputes its norms. The plain step
+    is the MPMD prediction at one stage, one chunk, one microbatch."""
+    from ray_tpu_torch.models.gpt import gpt2_large, llama_7b
+    from ray_tpu_torch.train.huggingface import config_from_hf
+
+    def plain(cfg):
+        return chip_smoke.mpmd_launches(cfg, 1, 1, 1, 1)
+
+    assert plain(chip_smoke._trainer_cfg(chip_smoke.DataSpec().feed)) == {
+        "flash_fwd": 36, "flash_bwd_dq": 36, "flash_bwd_dkv": 36, "rmsnorm": 0}
+    hf_cfg = config_from_hf(chip_smoke.types.SimpleNamespace(**chip_smoke.DataSpec().hf))
+    assert hf_cfg.vocab_size == 50304 and hf_cfg.remat and hf_cfg.remat_policy is None
+    assert plain(hf_cfg) == {"flash_fwd": 72, "flash_bwd_dq": 36, "flash_bwd_dkv": 36, "rmsnorm": 0}
+    assert plain(gpt2_large(remat=False)) == {"flash_fwd": 36, "flash_bwd_dq": 36, "flash_bwd_dkv": 36,
+                                              "rmsnorm": 0}
+    assert plain(llama_7b(n_layers=4, remat=True, remat_policy="attn")) == {
+        "flash_fwd": 4, "flash_bwd_dq": 4, "flash_bwd_dkv": 4, "rmsnorm": 17}
+
+
+def test_hf_state_dict_has_gpt2s_names_and_round_trips():
+    from ray_tpu_torch.train.huggingface import config_from_hf, params_from_hf, params_to_hf_state_dict
+
+    hf = dict(n_embd=32, n_layer=2, n_head=2, n_inner=64, vocab_size=100, n_positions=16)
+    sd = chip_smoke._hf_state_dict(hf, 5, "cpu")
+    assert sd["transformer.h.1.attn.c_attn.weight"].shape == (32, 96)  # Conv1D [in, out]
+    assert sd["transformer.h.0.mlp.c_proj.weight"].shape == (64, 32)
+    assert sd["lm_head.weight"] is sd["transformer.wte.weight"] and len(sd) == 4 + 12 * 2 + 1
+    assert all(torch.equal(a, b) for a, b in zip(sd.values(), chip_smoke._hf_state_dict(hf, 5, "cpu").values()))
+    cfg = config_from_hf(chip_smoke.types.SimpleNamespace(**hf))
+    back = params_to_hf_state_dict(params_from_hf(sd, cfg)[0], cfg, hf_vocab_size=100)
+    assert set(back) == set(sd) and all(torch.equal(back[k], v) for k, v in sd.items())
+
+
+HF_TINY = dict(n_embd=32, n_layer=2, n_head=2, n_inner=64, vocab_size=100, n_positions=16)
+
+
+def test_data_phase_rehearsal_on_the_cpu():
+    """The data phase's control flow, rehearsed on the CPU with tiny models
+    in a cluster with one advertised GPU and no card (every kernel's plain
+    version, so no launch is counted; one torch thread, so the driver's and
+    the worker's products agree bit for bit): the feed's rows made by CPU
+    tasks and taken in order through the streaming ingest, its losses and
+    grad norms equal the in-process ones; the HF state dict's round trip,
+    TransformersTrainer's losses equal to the driver's run of its step, its
+    checkpoint exported; the session's processes gone."""
+    spec = chip_smoke.DataSpec(feed=("gpt2-small", TRAINER_GPT, (2, 16)), warm=1, timed=2, parallelism=4,
+                               hf=HF_TINY, hf_rows=8, hf_batch=2, hf_steps=3,
+                               init={"num_cpus": 4, "num_gpus": 1}, device="cpu", threads=1)
+    threads = torch.get_num_threads()
+    launches = {}
+    try:
+        chip_smoke.phase_data(launches, None, spec)
+    finally:
+        torch.set_num_threads(threads)
+    for path in ("data", "hf"):
+        assert set(launches[path]) == set(chip_smoke._kernels()) and not any(launches[path].values())

@@ -4,12 +4,13 @@ or names a module of `ray_tpu` in a string (a `-m` path boots the
 reference's processes); importing the port loads neither; and its entry
 points refuse to run without a card unless the caller asks for the CPU.
 
-The runtime and Serve are a copy of the reference's (`RUNTIME_COPY`): each
-copied file equals its reference after the import rewrite (`rewrite`),
-except the files in `DIVERGES`, where every changed line sits next to a
-comment that names the reference line it replaces. The engine (`PORTS`) is
-a port, not a copy: it keeps the reference's methods, in order, and the
-order of the calls its `step()` makes."""
+The runtime, Serve, Train's core and the data plane are a copy of the
+reference's (`RUNTIME_COPY`): each copied file equals its reference after
+the import rewrite (`rewrite`), except the files in `DIVERGES`, where every
+changed line sits next to a comment that names the reference line it
+replaces. The engine and the other `PORTS` are ports, not copies: each
+keeps the reference's classes, functions and methods, in order (and the
+engine the order of the calls its `step()` makes)."""
 
 import ast
 import difflib
@@ -107,6 +108,10 @@ RUNTIME_COPY = (
     "train/checkpoint.py", "train/elastic", "train/torch_trainer.py", "train/gang_check.py",
     # MPMD pipeline training: the schedule copied, the rest ported.
     "train/mpmd",
+    # The data plane, streaming ingest included.
+    "data",
+    # HF GPT-2 interop (a port: PORTS).
+    "train/huggingface.py",
 )
 # Port-only files inside the copied directories.
 PORT_ONLY = {"core/devices.py", "core/host_names.py"}
@@ -151,6 +156,14 @@ DIVERGES = {
                                "cast by torch, not ml_dtypes",
     "train/mpmd/trainer.py": "GPU-worker stage actors (num_gpus_per_replica), a device option, params "
                              "seeded in torch, per-replica metrics",
+    "data/__init__.py": "docstring: the torch feed; pandas imported eagerly only where it is installed",
+    "data/block.py": "docstring: blocks feed torch.as_tensor, not jax.device_put",
+    "data/iterator.py": "iter_jax_batches dropped (it imports jax); docstring names the torch feed",
+    "data/dataset.py": "Dataset.iter_jax_batches dropped with the iterator's",
+    "data/README.md": "the torch feed in place of the JAX one",
+    "train/huggingface.py": "the loop on the port's step and AdamW on the card; params through the object "
+                            "store: fit() puts config['init_params'] there and a loop gets them by ref; "
+                            "TransformersTrainer over TorchTrainer (PORTS)",
 }
 # Diverging files that are ports, held by their structure, not line by line:
 # a class (its methods in the reference's order, its step()'s calls in
@@ -171,6 +184,7 @@ PORTS = {
     "train/mpmd/zero.py": {"module": ["train/mpmd/zero.py"], "renames": {"_adamw_jit": "_adamw"}},
     "train/mpmd/stage.py": {"module": ["train/mpmd/stage.py"]},
     "train/mpmd/local.py": {"module": ["train/mpmd/local.py"]},
+    "train/huggingface.py": {"module": ["train/huggingface.py"]},
 }
 
 
@@ -366,6 +380,7 @@ def test_importing_the_port_loads_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.parallel.pipeline, ray_tpu_torch.train, ray_tpu_torch.train.elastic\n"
         "import ray_tpu_torch.train.gang_check, ray_tpu_torch.train.torch_trainer\n"
         "import ray_tpu_torch.train.mpmd, ray_tpu_torch.train.mpmd.trainer\n"
+        "import ray_tpu_torch.data, ray_tpu_torch.data.streaming, ray_tpu_torch.train.huggingface\n"
         "new = set(sys.modules) - before\n"
         f"print(sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}))\n"
     )
@@ -379,6 +394,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from ray_tpu_torch.models import gpt
     from ray_tpu_torch.models.convert import params_from_jax
     from ray_tpu_torch.serve.engine import InferenceEngine
+    from ray_tpu_torch.train.huggingface import TransformersTrainer, _default_train_loop
     from ray_tpu_torch.train.mpmd import MPMDOptions, MPMDTrainer, StageRunner, run_local_pipeline
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -396,6 +412,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: StageRunner(cfg, 0, 1, 1, params),
         lambda: run_local_pipeline(cfg, 1, 1, 1, [np.zeros((1, 3), np.int64)], params=params),
         lambda: MPMDTrainer(cfg, MPMDOptions(num_stages=1), 1, lambda step: None),
+        lambda: TransformersTrainer(model=(np_params, cfg), datasets={}),
+        # A worker without a card, under a driver that has one: the loop refuses.
+        lambda: _default_train_loop({"gpt_config": cfg, "init_params": None}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -408,6 +427,24 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert np.isfinite(out["history"][0]["loss"])
     assert StageRunner(cfg, 0, 1, 1, params, device="cpu").params["w_qkv"].device.type == "cpu"
     MPMDTrainer(cfg, MPMDOptions(num_stages=1, device="cpu"), 1, lambda step: None)
+    _transformers_trainer_runs_on_the_cpu(cfg, np_params, TransformersTrainer)
+
+
+def _transformers_trainer_runs_on_the_cpu(cfg, np_params, trainer_cls):
+    """With device="cpu" the HF trainer's loop runs the plain path in a
+    gang of one (local mode): one step, a finite loss, the params back."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+
+    rt.init(local_mode=True)
+    try:
+        rows = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 9)).astype(np.int32)
+        result = trainer_cls(model=(np_params, cfg), datasets={"train": data.from_numpy(rows, column="tokens")},
+                             train_loop_config={"device": "cpu", "steps": 1, "batch_size": 2}).fit()
+    finally:
+        rt.shutdown()
+    assert result.error is None and np.isfinite(result.metrics["loss"])
+    assert set(result.checkpoint.to_dict()["params"]) == set(np_params)
 
 
 def test_convert_checks_layer_axis():

@@ -14,8 +14,8 @@ The cases of `tests/test_train_mpmd.py` run on the port:
   remat "attn") and a gpt2-style tied one, at (S, dp, M) = (2, 2, 2),
   (2, 1, 4) and v=2 with M = 2, 4, against the reference's unpipelined
   program (`_reference`, `:419-440`) and, at v=1, its `run_local_pipeline`,
-  at its bars: losses rtol 2e-5, grad norms 2e-4, params rtol 1e-4 /
-  atol 1e-5. The port's v=2 equals its v=1 bit for bit (the reference's
+  over 6 different batches (a fresh one each step), at its bars: losses
+  rtol 2e-5, grad norms 2e-4, params rtol 1e-4 / atol 1e-5. The port's v=2 equals its v=1 bit for bit (the reference's
   own v=2 is not held: its test fails on this tree). The tied bridge keeps
   both tok_embed copies equal; zero on/off bit for bit with the optimizer
   bytes dp x apart; against the reference's GPipe on its fake 2-device
@@ -309,8 +309,16 @@ def _np_params(jcfg, seed=0):
     return {k: np.asarray(v) for k, v in jg.init_params(jax.random.PRNGKey(seed), jcfg).items()}
 
 
-BATCHES = [np.random.default_rng(1).integers(0, TINY["vocab_size"], (8, 9)) for _ in range(2)]
+# Six different batches, one per step, from one generator: the pipeline is
+# held to the reference over as many fresh batches as the card's MPMD run.
+_BATCH_RNG = np.random.default_rng(1)
+BATCHES = [_BATCH_RNG.integers(0, TINY["vocab_size"], (8, 9)) for _ in range(6)]
 _CACHE: dict = {}
+
+
+def test_parity_batches_differ():
+    assert len(BATCHES) == 6
+    assert not any(np.array_equal(a, b) for i, a in enumerate(BATCHES) for b in BATCHES[:i])
 
 
 def _reference(style):
