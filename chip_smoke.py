@@ -57,7 +57,7 @@ Phases:
               update s per stage, the bubble, edge bytes); the same run
               interleaved (v=2) with the v=1 losses; run_local_pipeline
               card vs CPU (llama-7b widths, 2 layers, f32); gpt2-large
-              widths (4 layers, tied: the bridge runs) at dp=2, ZeRO, a
+              widths (2 layers, tied: the bridge runs) at dp=2, ZeRO, a
               checkpoint every 2 steps, a stage-1 replica SIGKILLed after
               step 3: the gang re-spawns, restores at the common commit and
               repeats an unkilled replicated run's losses bit for bit; ZeRO
@@ -78,7 +78,24 @@ Phases:
               round trip bit for bit, its first loss within 2e-3 of
               loss_fn, its losses bit-equal to the driver's run of the
               loop's step, its checkpoint exported with HF's keys and shapes
-  6e. parallel the mesh path on a one-rank NCCL world (make_mesh(), all six
+  6e. gbdt    the GBDT booster on the card: GradientBoostedTrees.fit on 2,000,000
+              HIGGS-shaped rows (28 f32 features, seeded) at XGBoost's default
+              params (depth 6, eta 0.3, 256 bins), 50 rounds, twice: the trees
+              bit for bit equal, the train loss falling, the validation
+              log-loss below the base rate's; the fit card vs CPU on 200,000
+              rows, 10 rounds (every differing split a near-tie); and
+              XGBoostTrainer(datasets={"train", "valid"}) on one GPU worker,
+              its rows in order and its trees the in-process fit's (host
+              binning s, card ms per round, the histogram's share,
+              index_add_ against index_put_, peak memory, predict rows/s)
+  6f. rllib   RLlib's core and PPO: PPO CartPole-v1 (BASELINE config #1, the
+              learner and local runner on the card) to mean reward 150
+              within 100,000 env steps; one PPO update card vs CPU (f32);
+              two remote env runners (CPU actors) and a remote learner (a
+              GPU worker), 3 iterations, the step count exact, save ->
+              restore bit for bit; PPO Pendulum-v1 and MultiAgentPPO (two
+              policies); the cnn encoder at 84x84x4, card vs CPU
+  6g. parallel the mesh path on a one-rank NCCL world (make_mesh(), all six
               axes 1): gpt2-medium-moe (8 experts, top-2) training at full
               width through make_train_step(mesh=) (tokens/s, step ms,
               device busy, peak memory, flash launches); the MoE model at 2
@@ -126,7 +143,7 @@ import types
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 PHASES = ("device", "build", "kernels", "parity", "train_parity", "train", "trainer", "mpmd", "data",
-          "parallel", "generate", "engine", "runtime", "serve")
+          "gbdt", "rllib", "parallel", "generate", "engine", "runtime", "serve")
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, SXM
 H100_F32_FLOPS = 67e12     # CUDA-core f32 peak, SXM
 H100_BYTES_PER_S = 3.35e12
@@ -1519,10 +1536,13 @@ class MPMDSpec:
     parity: tuple = ("llama-7b", {"n_layers": 2, "dtype": "float32"}, (2, 128))
     parity_micro: int = 2
     parity_steps: int = 2
-    kill: tuple = ("gpt2-large", {"n_layers": 4}, (8, 1024))
+    # gpt2-large widths at 2 layers, one a stage, for 4 steps (4 layers and 6
+    # steps until the gbdt and rllib phases joined the script): the kill
+    # after step 3, the resume at the step-2 commit, steps 3 and 4 again.
+    kill: tuple = ("gpt2-large", {"n_layers": 2}, (8, 1024))
     kill_micro: int = 2
     kill_dp: int = 2
-    kill_steps: int = 6
+    kill_steps: int = 4
     kill_after: int = 3
     ckpt_every: int = 2
     adamw: dict = dataclasses.field(default_factory=lambda: dict(MPMD_ADAMW))
@@ -1576,11 +1596,15 @@ def _mpmd_parity(spec: MPMDSpec, counts: dict) -> None:
     batches = [_mpmd_batch(cfg, spec.parity[2], 20 + s) for s in range(spec.parity_steps)]
     M = spec.parity_micro
     tf32 = torch.backends.cuda.matmul.allow_tf32
+    threads = torch.get_num_threads()
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         out = {}
         for name in ("cpu", "card"):
             dev = "cuda" if name == "card" and on_card else "cpu"
+            # On the CPU the stages run on threads of their own: each gets its
+            # share of the cores (at the full count each they oversubscribe them).
+            torch.set_num_threads(max(1, threads // spec.stages) if dev == "cpu" else threads)
             t0 = time.perf_counter()
             with counted(counts) if name == "card" else contextlib.nullcontext({}) as run:
                 res = run_local_pipeline(cfg, spec.stages, 1, M, batches, params=params, device=dev,
@@ -1590,6 +1614,7 @@ def _mpmd_parity(spec: MPMDSpec, counts: dict) -> None:
             del res
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.set_num_threads(threads)
     del params
     (lc, nc, tc), (lg, ng, tg_) = out["cpu"], out["card"]
     loss_d = max(abs(g - c) / abs(c) for g, c in zip(lg, lc))
@@ -2288,6 +2313,768 @@ def phase_data(launches: dict, trainer: dict | None = None, spec: DataSpec | Non
     for path, counts in (("feed", feed_counts), ("hf", hf_counts)):
         if on_card and not all(counts.get(k, 0) > 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
             raise AssertionError(f"data {path}: a flash kernel of the path was not launched: {counts}")
+
+
+# ------------------------------------------------------------------ gbdt
+GBDT_SEED = 12  # the HIGGS-shaped rows: default_rng(GBDT_SEED)
+GBDT_FEATURES = 28  # UCI HIGGS: 21 low-level + 7 high-level kinematic features
+# XGBoost's defaults (max_depth 6, eta 0.3, max_bin 256, lambda 1,
+# min_child_weight 1, gamma 0), binary:logistic, through XGBoostTrainer's map.
+GBDT_XGB_PARAMS = {"objective": "binary:logistic", "eta": 0.3, "max_depth": 6, "max_bin": 256, "lambda": 1.0,
+                   "min_child_weight": 1.0, "gamma": 0.0}
+GBDT_TIE_TOL = 1e-5  # near-tie: f64 gains within this share of the node's gain terms
+GBDT_PREDICT_TOL = 1e-5  # card vs CPU margins, |d| <= tol·(1 + |cpu|), when every split agrees
+
+
+@dataclasses.dataclass
+class GBDTSpec:
+    """What the gbdt phase fits: `rows` HIGGS-shaped training rows (cut
+    from HIGGS's 11,000,000: the host binning, the reference's numpy,
+    grows linearly with the rows) and `valid_rows` validation rows, 28 f32
+    features and a binary label from `default_rng(GBDT_SEED)`; `rounds`
+    rounds of XGBoost's default params; the card-vs-CPU fit on the first
+    `parity_rows` rows for `parity_rounds` rounds; the trainer's datasets in
+    blocks of `block_rows`. `device` None: the card; the CPU rehearsal
+    (tests/test_torch_chip_smoke.py) passes a tiny size on "cpu"."""
+
+    rows: int = 2_000_000
+    valid_rows: int = 500_000
+    rounds: int = 50
+    parity_rows: int = 200_000
+    parity_rounds: int = 10
+    block_rows: int = 100_000
+    init: dict = dataclasses.field(default_factory=lambda: {"log_to_driver": False})
+    device: str | None = None
+
+
+def higgs_like(n: int, seed: int):
+    """[n, 28] f32 features shaped like HIGGS's (14 signed normal, 14
+    positive and skewed like its momenta and masses) and a binary label from
+    a nonlinear rule plus noise (about half positive), from
+    `default_rng(seed)`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = np.empty((n, GBDT_FEATURES), np.float32)
+    X[:, :14] = rng.standard_normal((n, 14), dtype=np.float32)
+    X[:, 14:] = rng.lognormal(0.0, 0.5, (n, 14)).astype(np.float32)
+    logit = (1.2 * X[:, 0] * X[:, 1] + np.sin(2.0 * X[:, 2]) + 0.8 * (X[:, 14] > 1.2) - 0.6 * X[:, 3] ** 2
+             + 0.5 * np.log(X[:, 15]) * X[:, 4] + 0.4 * X[:, 16] - 0.2)
+    y = (logit + rng.logistic(0.0, 1.0, n) > 0).astype(np.float32)
+    return X, y
+
+
+def _logloss(p, y) -> float:
+    import numpy as np
+
+    return float(-np.mean(y * np.log(p + 1e-9) + (1 - y) * np.log(1 - p + 1e-9)))
+
+
+def _reachable(is_leaf):
+    """[..., nodes] mask of the nodes a sample can land in or pass."""
+    import numpy as np
+
+    out = np.zeros_like(is_leaf)
+    out[..., 0] = True
+    for n in range(is_leaf.shape[-1]):
+        for c in (2 * n + 1, 2 * n + 2):
+            if c < is_leaf.shape[-1]:
+                out[..., c] = out[..., n] & ~is_leaf[..., n]
+    return out
+
+
+def _split_differences(a: dict, b: dict) -> list:
+    """(round, node) of every reachable node whose split (or leaf mark)
+    differs between two fits' trees."""
+    import numpy as np
+
+    at = _reachable(a["is_leaf"]) | _reachable(b["is_leaf"])
+    differ = at & ((a["feat"] != b["feat"]) | (a["thresh"] != b["thresh"]) | (a["is_leaf"] != b["is_leaf"]))
+    return [tuple(int(i) for i in ix) for ix in np.argwhere(differ)]
+
+
+def _near_tie(X, y, trees_a: dict, trees_b: dict, model_cpu, rnd: int, node: int, p) -> tuple:
+    """At the first round where two fits differ, the f64 gains of each
+    fit's split at `node` (whose ancestors both fits share), over the rows
+    that reach it, from the gradients entering that round (the CPU fit's
+    predictions of its first `rnd` trees). Returns (gap, scale): a near-tie
+    when gap <= GBDT_TIE_TOL * scale, scale = (Σ|g|)² / (H + λ), the size of
+    the f32 rounding in the gain's terms."""
+    import numpy as np
+
+    from ray_tpu_torch.models import gbdt
+
+    head = gbdt.GradientBoostedTrees.from_dict(
+        {**model_cpu.to_dict(), "trees": {k: v[:rnd] for k, v in model_cpu.trees.items()}}, device="cpu")
+    pred = head.predict_raw(X).astype(np.float64)
+    prob = 1 / (1 + np.exp(-pred))
+    g, h = prob - y, prob * (1 - prob)
+    bins = gbdt.apply_bins(X, model_cpu.edges)
+    t = {k: v[rnd] for k, v in trees_a.items()}
+    idx = np.zeros(len(y), np.int64)
+    path = []
+    n = node
+    while n:
+        path.append(n)
+        n = (n - 1) // 2
+    for child in reversed(path):  # route through the shared ancestors
+        parent = (child - 1) // 2
+        go_left = bins[np.arange(len(y)), t["feat"][parent]] <= t["thresh"][parent]
+        keep = (idx == parent)
+        idx = np.where(keep, np.where(go_left, 2 * parent + 1, 2 * parent + 2), idx)
+    at = idx == node
+    gg, hh, bb = g[at], h[at], bins[at]
+    G, H = gg.sum(), hh.sum()
+
+    def gain(trees):
+        f, b = trees["feat"][rnd][node], trees["thresh"][rnd][node]
+        if trees["is_leaf"][rnd][node]:
+            return 0.0
+        left = bb[:, f] <= b
+        GL, HL = gg[left].sum(), hh[left].sum()
+        return 0.5 * (GL**2 / (HL + p.reg_lambda) + (G - GL)**2 / (H - HL + p.reg_lambda)
+                      - G**2 / (H + p.reg_lambda)) - p.gamma
+
+    return abs(gain(trees_a) - gain(trees_b)), np.abs(gg).sum()**2 / (H + p.reg_lambda)
+
+
+def _first_round_ties(X, y, diffs: list, trees: dict, model_cpu, p) -> list:
+    """(node, gap, scale) of each differing split of the first round where
+    two fits differ whose ancestors agree (below a differing split the rows
+    differ, and so does everything after that round)."""
+    if not diffs:
+        return []
+    first = diffs[0][0]
+    nodes = {n for r, n in diffs if r == first}
+
+    def ancestors(n):
+        while n:
+            n = (n - 1) // 2
+            yield n
+
+    return [(n, *_near_tie(X, y, trees, model_cpu.trees, model_cpu, first, n, p))
+            for n in sorted(nodes) if not any(a in nodes for a in ancestors(n))]
+
+
+def _gbdt_loop_counted():
+    """The GBDT trainer's own loop (`gbdt_trainer._gbdt_loop`), its report
+    stamped with the kernel launches since the loop began and a digest of
+    the (X, y) it materialised from its shards, in order."""
+
+    def loop(config):
+        import hashlib
+
+        import numpy as np
+
+        from ray_tpu_torch.kernels.flash_bwd import flash_bwd_dkv, flash_bwd_dq
+        from ray_tpu_torch.kernels.flash_fwd import flash_fwd
+        from ray_tpu_torch.kernels.rmsnorm import rmsnorm_fwd
+        from ray_tpu_torch.train import gbdt_trainer
+        from ray_tpu_torch.train.session import get_session
+
+        kernels = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv,
+                   "rmsnorm": rmsnorm_fwd}
+        digests = []
+        materialize = gbdt_trainer._materialize_xy
+
+        def digested(shard, label_column):
+            X, y = materialize(shard, label_column)
+            digests.append(hashlib.sha256(np.ascontiguousarray(X).tobytes() + y.tobytes()).hexdigest())
+            return X, y
+
+        session = get_session()
+        report = session.report
+
+        def stamped(metrics, checkpoint=None):
+            launches = {name: k.launches for name, k in kernels.items()}
+            report({**metrics, "launches": launches, "digests": list(digests)}, checkpoint)
+
+        session.report = stamped
+        gbdt_trainer._materialize_xy = digested
+        for k in kernels.values():
+            k.launches = 0
+        try:
+            gbdt_trainer._gbdt_loop(config)
+        finally:
+            gbdt_trainer._materialize_xy = materialize
+
+    return loop
+
+
+GBDT_PROBE_RUNS = 10
+
+
+def _hist_probe(bins, g, h, n_bins: int, on_card: bool) -> dict:
+    """The first level's histogram (every row in one node: the most rows
+    per bin, so the most contention) by `index_add_` and by the booster's
+    `index_put_(accumulate=True)`: each run GBDT_PROBE_RUNS times and
+    compared bit for bit across the runs and with the CPU's serial sum in
+    row order; each timed (CUDA events)."""
+    import torch
+
+    from ray_tpu_torch.models import gbdt
+
+    N, F = bins.shape
+    seg = torch.arange(F, device=bins.device)[None, :] * n_bins + bins
+    num_seg = F * n_bins
+
+    def index_add():
+        vals = torch.stack([g, h], dim=1)[:, None, :].expand(N, F, 2).reshape(N * F, 2)
+        out = torch.zeros((num_seg, 2), dtype=g.dtype, device=g.device)
+        out.index_add_(0, seg.reshape(-1), vals)
+        return out[:, 0], out[:, 1]
+
+    def index_put():
+        return gbdt._histograms(seg, g, h, num_seg)
+
+    serial = gbdt._histograms(seg.cpu(), g.cpu(), h.cpu(), num_seg)  # the CPU's row-order sums
+    out = {}
+    for name, fn in (("index_add_", index_add), ("index_put_", index_put)):
+        runs = [fn() for _ in range(GBDT_PROBE_RUNS)]
+        same = all(torch.equal(r[0], runs[0][0]) and torch.equal(r[1], runs[0][1]) for r in runs)
+        in_order = torch.equal(runs[0][0].cpu(), serial[0]) and torch.equal(runs[0][1].cpu(), serial[1])
+        ms = cuda_ms(fn, iters=5, graph=False)[1] if on_card else float("nan")
+        out[name] = {"deterministic": same, "row_order": in_order, "ms": ms}
+    return out
+
+
+def phase_gbdt(launches: dict, spec: GBDTSpec | None = None) -> None:
+    """The GBDT booster on the card through its entry points:
+    `GradientBoostedTrees.fit` on HIGGS-shaped rows at XGBoost's default
+    params, twice (the trees bit for bit equal: the histogram's scatter-add
+    is deterministic), its train loss falling and its validation log-loss
+    below the base rate's; the same fit card vs CPU on a slice (every
+    differing split a near-tie, the margins within GBDT_PREDICT_TOL when
+    none differs); and `XGBoostTrainer(datasets={"train", "valid"})` on one
+    GPU worker, its rows in the in-process order and its trees equal to the
+    in-process fit's. Records the host binning, the card's time per round
+    and the histogram's share of it, index_add_ against index_put_, peak
+    device memory and prediction rows/s."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+    from ray_tpu_torch.core import api
+    from ray_tpu_torch.models import gbdt
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, XGBoostTrainer
+
+    spec = spec or GBDTSpec()
+    on_card = spec.device is None
+    device = "cuda" if on_card else spec.device
+    t_phase = time.perf_counter()
+    counts: dict = {}
+
+    X, y = higgs_like(spec.rows + spec.valid_rows, GBDT_SEED)
+    Xv, yv = X[spec.rows:], y[spec.rows:]
+    X, y = X[:spec.rows], y[:spec.rows]
+    p = XGBoostTrainer(datasets={}, label_column="y", params=dict(GBDT_XGB_PARAMS),
+                       num_boost_round=spec.rounds).train_loop_config["gbdt_params"]
+    log(f"gbdt: {spec.rows} + {spec.valid_rows} HIGGS-shaped rows x {GBDT_FEATURES} f32 (positives "
+        f"{y.mean():.4f}); params from XGBoostTrainer's map {p}")
+
+    # 1. In process, twice; the first fit's host binning timed inside it
+    # (fit() calls the module's quantile_bins and apply_bins).
+    binned: dict = {}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = binned[name] = fn(*args, **kwargs)
+            binned[name + "_s"] = time.perf_counter() - t0
+            return out
+        return wrapper
+
+    fits, fit_s = [], []
+    for i in range(2):
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        stock = gbdt.quantile_bins, gbdt.apply_bins
+        if i == 0:
+            gbdt.quantile_bins, gbdt.apply_bins = timed("edges", stock[0]), timed("bins", stock[1])
+        t0 = time.perf_counter()
+        try:
+            with counted(counts):
+                fits.append(gbdt.GradientBoostedTrees(p, device=spec.device).fit(X, y))
+        finally:
+            gbdt.quantile_bins, gbdt.apply_bins = stock
+        fit_s.append(time.perf_counter() - t0)
+    host_bins, binning_s = binned["bins"], binned["edges_s"] + binned["bins_s"]
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    model = fits[0]
+    same = all(np.array_equal(fits[0].trees[k], fits[1].trees[k]) for k in model.trees) and \
+        fits[0].train_history == fits[1].train_history
+    t0 = time.perf_counter()
+    with counted(counts):
+        pv = model.predict(Xv)
+    predict_s = time.perf_counter() - t0
+    base = float(y.mean())
+    base_ll = _logloss(np.full_like(yv, base), yv)
+    valid_ll = _logloss(pv, yv)
+    hist = model.train_history
+
+    # The card's time per round and the histogram's share of it, on the
+    # fit's own binned rows and gradients (one round: gradients, tree,
+    # prediction, as fit() runs it).
+    bins = torch.from_numpy(host_bins).to(device).long()
+    yt = torch.as_tensor(y, device=device)
+    pred = torch.full((spec.rows,), p.base_score, dtype=torch.float32, device=device)
+
+    def one_round():
+        g, h = gbdt._grad_hess(p.objective, pred, yt)
+        t = gbdt._grow_tree(bins, g, h, p.max_depth, p.max_bins, p.reg_lambda, p.gamma, p.min_child_weight)
+        return pred + p.learning_rate * gbdt._predict_tree(bins, *t, p.max_depth)
+
+    round_ms = hist_share = float("nan")
+    probe = {}
+    with counted(counts):
+        if on_card:
+            round_ms = cuda_ms(one_round, iters=3, graph=False)[1]
+            hist_share = _gbdt_hist_share(one_round)
+        g0, h0 = gbdt._grad_hess(p.objective, pred, yt)
+        probe = _hist_probe(bins, g0, h0, p.max_bins, on_card)
+    del bins, yt, pred, g0, h0
+    log(f"gbdt in process on {device}: host binning {binning_s:.2f} s ({spec.rows} x {GBDT_FEATURES}, numpy); "
+        f"fit() {fit_s[0]:.2f} s, {fit_s[1]:.2f} s ({spec.rounds} rounds, depth {p.max_depth}, {p.max_bins} bins, "
+        f"binning included); one round {round_ms:.3f} ms on the card (CUDA events, mean of 3), the histogram "
+        f"{hist_share:.3f} of its device time (profiler); two fits {'bit for bit equal' if same else 'DIFFER'}; "
+        f"train loss {hist[0]:.6f} -> {hist[-1]:.6f} ({len(hist)} evals); valid log-loss {valid_ll:.6f} vs the "
+        f"base rate's {base_ll:.6f}, accuracy {((pv > 0.5) == yv).mean():.4f}; peak device memory "
+        f"{peak / 2**30:.3f} GiB; predict() {spec.valid_rows / predict_s:.1f} rows/s ({predict_s:.3f} s for "
+        f"{spec.valid_rows} rows, binning included)")
+    log(f"gbdt level-0 histogram ({spec.rows} rows x {GBDT_FEATURES} features, {p.max_bins} bins): "
+        + "; ".join(f"{k} {v['ms']:.3f} ms, {GBDT_PROBE_RUNS} runs "
+                    f"{'bit for bit equal' if v['deterministic'] else 'DIFFER'}, "
+                    f"{'equal to' if v['row_order'] else 'not'} the CPU's row-order sums"
+                    for k, v in probe.items()))
+    if not same:
+        raise AssertionError("gbdt: two fits of the same rows on the same device gave different trees")
+    if not probe["index_put_"]["deterministic"]:
+        raise AssertionError("gbdt: the booster's index_put_ histogram differs between two runs")
+    if not (hist[-1] < hist[0] and math.isfinite(hist[-1])):
+        raise AssertionError(f"gbdt: the train loss did not fall: {hist}")
+    if not valid_ll < base_ll:
+        raise AssertionError(f"gbdt: valid log-loss {valid_ll} not below the base rate's {base_ll}")
+
+    # 2. Card vs CPU on a slice.
+    Xs, ys = X[:spec.parity_rows], y[:spec.parity_rows]
+    ps = dataclasses.replace(p, num_boost_round=spec.parity_rounds)
+    with counted(counts):
+        on_dev = gbdt.GradientBoostedTrees(ps, device=spec.device).fit(Xs, ys)
+    on_cpu = gbdt.GradientBoostedTrees(ps, device="cpu").fit(Xs, ys)
+    diffs = _split_differences(on_dev.trees, on_cpu.trees)
+    with counted(counts):
+        m_dev = on_dev.predict_raw(Xv)
+    m_cpu = on_cpu.predict_raw(Xv)
+    err = float(np.max(np.abs(m_dev - m_cpu) / (1 + np.abs(m_cpu))))
+    leaf_err = float(np.max(np.abs(on_dev.trees["leaf"] - on_cpu.trees["leaf"])))
+    ties = _first_round_ties(Xs, ys, diffs, on_dev.trees, on_cpu, ps)
+    ll_dev, ll_cpu = _logloss(1 / (1 + np.exp(-m_dev)), yv), _logloss(1 / (1 + np.exp(-m_cpu)), yv)
+    log(f"gbdt card vs CPU ({spec.parity_rows} rows, {spec.parity_rounds} rounds): {len(diffs)} differing splits "
+        f"{diffs[:8]}; margins max |d|/(1+|cpu|) {err:.3e} (tol {GBDT_PREDICT_TOL} when no split differs), leaf "
+        f"values max |d| {leaf_err:.3e}, train histories {on_dev.train_history} vs {on_cpu.train_history}; "
+        f"valid log-loss {ll_dev:.6f} vs {ll_cpu:.6f}; first differing round's splits (node, f64 gain gap, scale): "
+        f"{[(n, f'{gap:.3e}', f'{sc:.3e}') for n, gap, sc in ties]}")
+    if not diffs and err > GBDT_PREDICT_TOL:
+        raise AssertionError(f"gbdt card vs CPU: margins differ by {err:.3e} with equal trees")
+    bad = [(n, gap, sc) for n, gap, sc in ties if gap > GBDT_TIE_TOL * sc]
+    if diffs and (not ties or bad):
+        raise AssertionError(f"gbdt card vs CPU: differing splits that are no near-tie {bad or diffs[:4]}")
+
+    # 3. Through the trainer: one GPU worker.
+    storage = tempfile.mkdtemp(prefix="rtput-gbdt-")
+    t0 = time.perf_counter()
+    rt.init(**spec.init)
+    backend = api._global_runtime().backend
+    session_dir, controller = backend.session_dir, backend._controller_proc.pid
+    try:
+        log(f"gbdt: cluster up in {time.perf_counter() - t0:.2f} s, resources {rt.cluster_resources()}")
+
+        def dataset(Xd, yd):
+            rows = np.concatenate([Xd, yd[:, None]], axis=1)
+            blocks = [rows[i:i + spec.block_rows] for i in range(0, len(rows), spec.block_rows)]
+            return data.from_numpy(blocks).map_batches(lambda b: {"x": b["data"][:, :-1], "y": b["data"][:, -1]})
+
+        trainer = XGBoostTrainer(
+            datasets={"train": dataset(X, y), "valid": dataset(Xv, yv)}, label_column="y",
+            params=dict(GBDT_XGB_PARAMS), num_boost_round=spec.rounds,
+            # The rehearsal's CPU worker (it has no card); the card's run takes the default GPU worker.
+            **({} if on_card else {"scaling_config": ScalingConfig(num_workers=1, use_gpu=False)}),
+            run_config=RunConfig(storage_path=storage, name="gbdt"))
+        trainer.train_loop_per_worker = _gbdt_loop_counted()
+        t_fit = time.perf_counter()
+        result = trainer.fit()
+        trainer_fit_s = time.perf_counter() - t_fit
+        if result.error:
+            raise AssertionError(f"gbdt trainer: the run failed: {result.error}")
+        m = result.metrics
+        _sum_launches(counts, [m])
+        digest = _xy_digest(X, y), _xy_digest(Xv, yv)
+        in_order = tuple(m["digests"]) == digest
+        got = gbdt.GradientBoostedTrees.from_dict(result.checkpoint.to_dict()["model"], device="cpu")
+        equal = all(np.array_equal(got.trees[k], model.trees[k]) for k in model.trees)
+        tdiffs = [] if equal else _split_differences(got.trees, model.trees)
+        log(f"gbdt XGBoostTrainer on {'one GPU worker' if on_card else 'one CPU worker'}: fit() "
+            f"{trainer_fit_s:.1f} s ({-(-spec.rows // spec.block_rows)} + {-(-spec.valid_rows // spec.block_rows)} "
+            f"blocks of up to {spec.block_rows} rows); rows reached the "
+            f"worker {'in the in-process order' if in_order else 'REORDERED'}; trees "
+            f"{'equal to the in-process fit, bit for bit' if equal else f'differ at {tdiffs[:8]}'}; "
+            f"train loss {m['train_loss']:.6f} (in process {hist[-1]:.6f}), valid log-loss "
+            f"{m['valid_logloss']:.6f} (in process {valid_ll:.6f}), accuracy {m['valid_accuracy']:.4f}; launches "
+            f"in the worker {m['launches']}")
+        if in_order and not equal:
+            raise AssertionError(f"gbdt trainer: rows in order, but the trees differ from the in-process fit's at "
+                                 f"{tdiffs[:8]}")
+        if not in_order:
+            # Reordered rows sum in another order: hold the trees to the near-tie rule.
+            ties = _first_round_ties(X, y, tdiffs, got.trees, model, p)
+            log(f"gbdt trainer: rows reordered; first differing round's splits (node, gap, scale) {ties}")
+            if any(gap > GBDT_TIE_TOL * sc for _, gap, sc in ties):
+                raise AssertionError(f"gbdt trainer: reordered rows gave splits that are no near-tie: {ties}")
+    finally:
+        left = _end_session(controller, session_dir)
+        shutil.rmtree(storage, ignore_errors=True)
+    if left:
+        raise AssertionError(f"gbdt: processes outlived shutdown (killed): {left}")
+    launches["gbdt"] = counts
+    log(f"gbdt launches {counts}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    if any(counts.get(k, 0) for k in _kernels()):
+        raise AssertionError(f"gbdt: the booster launched an attention or RMSNorm kernel: {counts}")
+
+
+def _xy_digest(X, y) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(X).tobytes() + np.ascontiguousarray(y).tobytes()).hexdigest()
+
+
+def _gbdt_hist_share(one_round) -> float:
+    """The share of one round's device time spent under the booster's
+    `gbdt_hist` ranges (torch.profiler; nan when it recorded no device
+    time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one_round()
+        torch.cuda.synchronize()
+    events = prof.events()
+    total = sum(e.time_range.end - e.time_range.start for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
+    hist = sum(e.device_time_total for e in events
+               if e.name == "gbdt_hist" and e.device_type == torch.autograd.DeviceType.CPU)
+    return hist / total if total > 0 else float("nan")
+
+
+# ------------------------------------------------------------------ rllib
+@dataclasses.dataclass
+class RLlibSpec:
+    """What the rllib phase trains. `learn`: BASELINE config #1, PPO
+    CartPole-v1 (`rllib/tuned_examples/ppo/cartpole-ppo.yaml:4-6`) at the
+    reference test's settings (`tests/test_rllib.py:36-44`), to
+    `gate` mean reward within `max_steps` env steps; `remote_*`: the
+    remote runners (CPU actors) and the remote learner (a GPU worker);
+    `cnn`: the catalog's cnn encoder at Atari's observation shape. `device`
+    None: the card; the CPU rehearsal (tests/test_torch_chip_smoke.py)
+    passes a small size on "cpu"."""
+
+    envs: int = 16
+    batch: int = 2048
+    minibatch: int = 256
+    epochs: int = 10
+    lr: float = 3e-4
+    entropy: float = 0.01
+    hidden: tuple = (64, 64)
+    gate: float = 150.0
+    max_steps: int = 100_000
+    remote_runners: int = 2
+    remote_envs: int = 8
+    remote_iters: int = 3
+    pendulum_iters: int = 2
+    ma_iters: int = 3
+    cnn_shape: tuple = (84, 84, 4)
+    cnn_batch: int = 256
+    init: dict = dataclasses.field(default_factory=lambda: {"log_to_driver": False})
+    device: str | None = None
+
+
+RL_TOL = 1e-5   # one PPO update card vs CPU (f32, TF32 off), of each tensor's largest entry
+CNN_TOL = 1e-4  # the cnn encoder's f32 forward and gradients on the card, against the CPU's f64
+
+
+def _ppo_config(spec: RLlibSpec, device):
+    from ray_tpu_torch.rllib import PPOConfig
+
+    return (PPOConfig().environment("CartPole-v1")
+            .env_runners(num_env_runners=0, num_envs_per_env_runner=spec.envs)
+            .training(train_batch_size=spec.batch, minibatch_size=spec.minibatch, num_epochs=spec.epochs,
+                      lr=spec.lr, entropy_coeff=spec.entropy, model={"hidden": spec.hidden})
+            .debugging(seed=0).resources(device=device))
+
+
+def _leaf_errors(got, want) -> list:
+    """|got - want| max over each leaf, over the leaf's largest |want|."""
+    from ray_tpu_torch.rllib.utils.tree import tree_leaves
+
+    out = []
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g, w = g.detach().double().cpu(), w.detach().double().cpu()
+        out.append(float((g - w).abs().max() / max(float(w.abs().max()), 1e-30)))
+    return out
+
+
+class _TimedStore:
+    """The runtime module as Algorithm uses it (`self._ray`), its `put`
+    timed: the weights' seconds into the store each iteration."""
+
+    def __init__(self, ray, times: list):
+        self._ray, self._times = ray, times
+
+    def put(self, value):
+        t0 = time.perf_counter()
+        ref = self._ray.put(value)
+        self._times.append(time.perf_counter() - t0)
+        return ref
+
+    def __getattr__(self, name):
+        return getattr(self._ray, name)
+
+
+def phase_rllib(launches: dict, spec: RLlibSpec | None = None) -> None:
+    """RLlib's core and PPO on the card through their entry points: PPO
+    CartPole-v1 (BASELINE config #1) with the learner and the local runner
+    on the card, to mean reward 150 within 100,000 env steps; one PPO
+    update on a recorded batch card vs CPU (f32, TF32 off); remote env
+    runners (CPU actors) and a remote learner (a GPU worker), the step
+    count exact and save -> restore bit-equal; PPO Pendulum-v1 (Gaussian)
+    and MultiAgentPPO with two policies; the cnn encoder at Atari's shape
+    card vs CPU. Records iterations and env steps to the gate, env
+    steps/s, sample and update ms, the update's device busy and idle
+    share, the GPU worker's boot and the weights' seconds through the
+    store."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api
+    from ray_tpu_torch.rllib import PPOConfig, make_env
+    from ray_tpu_torch.rllib.algorithms import ppo
+    from ray_tpu_torch.rllib.algorithms.multi_agent_ppo import MultiAgentPPOConfig
+    from ray_tpu_torch.rllib.core import catalog
+    from ray_tpu_torch.rllib.env.multi_agent import make_multi_agent
+    from ray_tpu_torch.rllib.utils.optim import make_optimizer
+    from ray_tpu_torch.rllib.utils.tree import to_device, to_numpy, tree_leaves, tree_unflatten_like
+
+    spec = spec or RLlibSpec()
+    on_card = spec.device is None
+    device = "cuda" if on_card else spec.device
+    t_phase = time.perf_counter()
+    counts: dict = {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        # 1. Learning: BASELINE config #1.
+        algo = _ppo_config(spec, spec.device).build()
+        sample_s, update_s, batches = [], [], []
+        sample, update = algo._sample_batches, algo.learner_group.update
+
+        def timed_sample():
+            t0 = time.perf_counter()
+            out = sample()
+            sample_s.append(time.perf_counter() - t0)
+            return out
+
+        def timed_update(batch):
+            batches[:] = [batch]
+            t0 = time.perf_counter()
+            out = update(batch)
+            update_s.append(time.perf_counter() - t0)
+            return out
+
+        algo._sample_batches, algo.learner_group.update = timed_sample, timed_update
+        best, curve, reached = float("-inf"), [], None
+        t0 = time.perf_counter()
+        with counted(counts):
+            while True:
+                r = algo.train()
+                curve.append(round(r["episode_reward_mean"], 1))
+                best = max(best, r["episode_reward_mean"])
+                if best >= spec.gate:
+                    reached = (r["training_iteration"], r["timesteps_total"])
+                    break
+                if r["timesteps_total"] + spec.batch > spec.max_steps:
+                    break
+        learn_s = time.perf_counter() - t0
+        learner = algo.learner_group.local_learner
+        steps_total = r["timesteps_total"]
+        busy = None
+        if on_card:
+            busy = _profile("rllib ppo update (one iteration)", lambda: update(batches[0]))
+        log(f"rllib PPO CartPole-v1 on {device} (learner and local runner; {spec.envs} envs, batch {spec.batch}, "
+            f"minibatch {spec.minibatch}, {spec.epochs} epochs, lr {spec.lr}, entropy {spec.entropy}, seed 0): "
+            f"mean reward by iteration {curve}; "
+            + (f"reached {spec.gate} at iteration {reached[0]}, {reached[1]} env steps" if reached else
+               f"did NOT reach {spec.gate} within {spec.max_steps} env steps (best {best:.1f})")
+            + f"; {steps_total / learn_s:.1f} env steps/s over {learn_s:.1f} s; per iteration sample "
+            f"{sorted(sample_s)[len(sample_s) // 2] * 1e3:.1f} ms, update {sorted(update_s)[len(update_s) // 2] * 1e3:.1f}"
+            f" ms (p50 of {len(update_s)}); device events in one update {busy}")
+        if reached is None:
+            raise AssertionError(f"rllib: PPO CartPole did not reach {spec.gate} within {spec.max_steps} env steps "
+                                 f"(best {best:.1f}; by iteration {curve})")
+
+        # 2. One update card vs CPU on the recorded batch, params and permutations.
+        cfg = algo.config
+        batch = batches[0]
+        T, B = batch["rewards"].shape
+        N = T * B
+        perms = ppo.ppo_perms(torch.Generator().manual_seed(1), N, cfg.num_epochs, N // cfg.minibatch_size,
+                              cfg.minibatch_size)
+        state = to_numpy((learner.params, learner.opt_state))
+        outs = {}
+        for dev in (device, "cpu"):
+            upd = ppo.make_ppo_update(algo.module, make_optimizer(cfg), cfg)
+            with counted(counts):
+                outs[dev] = upd.with_perms(to_device(state, dev), to_device(batch, dev), perms.to(dev))
+        (p_dev, _), m_dev = outs[device]
+        (p_cpu, _), m_cpu = outs["cpu"]
+        perr = max(_leaf_errors(p_dev, p_cpu))
+        merr = {k: abs(float(m_dev[k]) - float(m_cpu[k])) / max(abs(float(m_cpu[k])), 1e-30) for k in m_cpu}
+        log(f"rllib one PPO update card vs CPU ({cfg.num_epochs} epochs x {N // cfg.minibatch_size} minibatches of "
+            f"{cfg.minibatch_size}, f32, TF32 off): params worst {perr:.3e} of each tensor's largest entry; metrics "
+            f"rel {({k: f'{v:.2e}' for k, v in merr.items()})} (tol {RL_TOL})")
+        if perr > RL_TOL or max(merr.values()) > RL_TOL:
+            raise AssertionError(f"rllib card vs CPU: params {perr:.3e}, metrics {merr} (tol {RL_TOL})")
+        algo.stop()
+        del algo, learner, outs
+
+        # 3. Continuous and multi-agent, on the card.
+        with counted(counts):
+            pend = (PPOConfig().environment("Pendulum-v1").training(train_batch_size=512, minibatch_size=128,
+                                                                      num_epochs=2)
+                    .debugging(seed=0).resources(device=spec.device).build())
+            pl = [pend.train()["info"]["learner"] for _ in range(spec.pendulum_iters)]
+            pend.stop()
+            ma_cfg = (MultiAgentPPOConfig()
+                      .environment(ma_env_maker=make_multi_agent(lambda n, **kw: make_env("CartPole-v1", n), 2))
+                      .training(train_batch_size=1024, minibatch_size=128, num_epochs=6, lr=3e-4, entropy_coeff=0.01)
+                      .debugging(seed=0)
+                      .multi_agent(policies=["p0", "p1"], policy_mapping_fn=lambda a: "p0" if a == "agent_0" else "p1")
+                      .resources(device=spec.device))
+            ma_cfg.num_instances = 8
+            ma = ma_cfg.build()
+            w0 = ma.learner_group.get_weights()
+            ma_res = [ma.train() for _ in range(spec.ma_iters)]
+            w1 = ma.learner_group.get_weights()
+        start_equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(w0["p0"]), tree_leaves(w0["p1"])))
+        apart = not all(torch.equal(a, b) for a, b in zip(tree_leaves(w1["p0"]), tree_leaves(w1["p1"])))
+        slots = dict(ma._runner.slots)
+        on = {pid: tree_leaves(w)[0].device.type for pid, w in w1.items()}
+        log(f"rllib PPO Pendulum-v1 (Gaussian) on {device}: total_loss by iteration "
+            f"{[round(x['total_loss'], 4) for x in pl]}; MultiAgentPPO two policies on MultiCartPole: slots {slots}, "
+            f"weights on {on}, equal at the start {start_equal}, apart after {spec.ma_iters} iterations {apart}; "
+            f"policy reward means {[r['policy_reward_mean'] for r in ma_res][-1]}; env steps per iteration "
+            f"{[r['num_env_steps_sampled_this_iter'] for r in ma_res]}")
+        if not all(math.isfinite(x["total_loss"]) for x in pl):
+            raise AssertionError(f"rllib pendulum: non-finite loss {pl}")
+        if slots != {"p0": ["agent_0"], "p1": ["agent_1"]} or not start_equal or not apart or \
+                set(on.values()) != {device}:
+            raise AssertionError(f"rllib multi-agent: slots {slots}, start equal {start_equal}, apart {apart}, "
+                                 f"devices {on}")
+        ma.stop()
+
+        # 4. The catalog's cnn encoder at Atari's shape: the card's f32
+        # forward and gradients against the CPU's f64 ones (and the CPU's
+        # f32 beside them). The loss is a value regression to 0,
+        # 0.5·mean(feat²): its gradient vanishes where a ReLU turns, so a
+        # unit that rounding moves across zero changes nothing.
+        enc = catalog.build_encoder({"encoder": "cnn", "obs_shape": spec.cnn_shape}, int(np.prod(spec.cnn_shape)))
+        cparams = enc.init(torch.Generator().manual_seed(3))
+        obs = np.random.default_rng(4).uniform(0, 1, (spec.cnn_batch, int(np.prod(spec.cnn_shape)))).astype(np.float32)
+        res = {}
+        for dev, dtype in ((device, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+            leaves = [t.to(dev, dtype).requires_grad_() for t in tree_leaves(cparams)]
+            with counted(counts):
+                feat = enc.apply(tree_unflatten_like(cparams, leaves), torch.as_tensor(obs, device=dev, dtype=dtype))
+                grads = torch.autograd.grad(0.5 * (feat ** 2).mean(), leaves)
+            res[dev, dtype] = [feat.detach(), *grads]
+        cerr = _leaf_errors(res[device, torch.float32], res["cpu", torch.float64])
+        f32err = _leaf_errors(res["cpu", torch.float32], res["cpu", torch.float64])
+        pair = _leaf_errors(res[device, torch.float32], res["cpu", torch.float32])
+        log(f"rllib cnn encoder {spec.cnn_shape} (filters (16, 4, 2), (32, 4, 2), head 256), batch {spec.cnn_batch}, "
+            f"f32, TF32 off, loss 0.5*mean(feat^2): the card against the CPU's f64, of each tensor's largest entry: "
+            f"forward {cerr[0]:.3e}, gradients {[f'{e:.2e}' for e in cerr[1:]]} (tol {CNN_TOL}); the CPU's f32 "
+            f"against its f64 {[f'{e:.2e}' for e in f32err]}; card vs CPU f32 {[f'{e:.2e}' for e in pair]}")
+        if max(cerr) > CNN_TOL:
+            raise AssertionError(f"rllib cnn: the card's f32 against the CPU's f64 {cerr} (tol {CNN_TOL})")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    # 5. Remote runners (CPU actors) and a remote learner (a GPU worker).
+    rt.init(**spec.init)
+    backend = api._global_runtime().backend
+    session_dir, controller = backend.session_dir, backend._controller_proc.pid
+    ckpt = tempfile.mkdtemp(prefix="rtput-rllib-")
+    try:
+        rcfg = (_ppo_config(spec, spec.device)
+                .env_runners(num_env_runners=spec.remote_runners, num_envs_per_env_runner=spec.remote_envs)
+                .resources(remote_learner=True))
+        t0 = time.perf_counter()
+        with counted(counts):
+            ralgo = rcfg.build()
+        boot_s = time.perf_counter() - t0
+        put_s: list = []
+        ralgo._ray = _TimedStore(ralgo._ray, put_s)
+        get_w = ralgo.learner_group.get_weights
+        get_s: list = []
+
+        def timed_get_weights():
+            t0 = time.perf_counter()
+            w = get_w()
+            get_s.append(time.perf_counter() - t0)
+            return w
+
+        ralgo.learner_group.get_weights = timed_get_weights
+        with counted(counts):
+            rres = [ralgo.train() for _ in range(spec.remote_iters)]
+        steps = [x["num_env_steps_sampled_this_iter"] for x in rres]
+        losses = [x["info"]["learner"]["total_loss"] for x in rres]
+        ralgo.save(ckpt)
+        want = get_w()
+        ralgo.stop()
+        local = _ppo_config(spec, spec.device).build()
+        local.restore(ckpt)
+        got = local.learner_group.get_weights()
+        local.stop()
+        restored = all(np.array_equal(a, b) for a, b in zip(tree_leaves(want), tree_leaves(got)))
+        w_bytes = sum(a.nbytes for a in tree_leaves(want))
+        log(f"rllib remote: {spec.remote_runners} env runners (CPU actors, {spec.remote_envs} envs each) and a remote "
+            f"learner on a {'GPU' if on_card else 'CPU'} worker: build() {boot_s:.2f} s (the learner's worker boot, "
+            f"its params, the runners' boot); env steps per iteration {steps}; total_loss {losses}; weights "
+            f"({w_bytes} bytes) into the store {[round(s * 1e3, 3) for s in put_s]} ms, out of the learner "
+            f"{[round(s * 1e3, 3) for s in get_s]} ms per iteration; save -> restore into a new (local) algorithm: "
+            f"{'bit for bit' if restored else 'NOT equal'}")
+        if steps != [spec.batch] * spec.remote_iters or not all(math.isfinite(x) for x in losses) or not restored:
+            raise AssertionError(f"rllib remote: steps {steps}, losses {losses}, restored {restored}")
+    finally:
+        left = _end_session(controller, session_dir)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if left:
+        raise AssertionError(f"rllib: processes outlived shutdown (killed): {left}")
+    launches["rllib"] = counts
+    log(f"rllib launches (driver side; the remote learner's process is not read) {counts}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if any(counts.get(k, 0) for k in _kernels()):
+        raise AssertionError(f"rllib: an attention or RMSNorm kernel was launched: {counts}")
+
 
 
 # ------------------------------------------------------------------ parallel
@@ -3431,6 +4218,10 @@ def main(argv=None) -> int:
         phase_mpmd(launches, trained)
     if "data" in phases:
         phase_data(launches, trained)
+    if "gbdt" in phases:
+        phase_gbdt(launches)
+    if "rllib" in phases:
+        phase_rllib(launches)
     if "parallel" in phases:
         phase_parallel(launches)
     generated = served = None

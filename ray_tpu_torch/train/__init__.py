@@ -9,8 +9,8 @@ The port's trainer is `TorchTrainer`: one worker per card, the gang joined
 in one torch.distributed world (NCCL on GPU workers, gloo on CPU workers),
 and `torch_utils.get_mesh()` builds the gang-wide `DeviceMesh` the model's
 `mesh=` path runs on. The reference (`ray_tpu/train/__init__.py:1-14`)
-gangs one JAX worker per host instead; its GBDT trainers and `JaxTrainer`
-are not ported here.
+gangs one JAX worker per host instead; its `JaxTrainer` is `TorchTrainer`
+here. The GBDT trainers fit the port's booster on a GPU worker's card.
 """
 
 from .config import (
@@ -32,8 +32,9 @@ from .session import (
 from .result import Result
 from .base_trainer import BaseTrainer
 from .data_parallel_trainer import DataParallelTrainer
-# reference: GBDTTrainer, XGBoostTrainer and JaxTrainer
-# (`ray_tpu/train/__init__.py:35-36`) are not ported yet.
+from .gbdt_trainer import GBDTTrainer, XGBoostTrainer
+# reference: `from .jax_trainer import JaxTrainer` (`ray_tpu/train/__init__.py:36`);
+# the port's trainer is TorchTrainer.
 from . import elastic  # noqa: F401 — fault-tolerant gang training
 from . import huggingface  # noqa: F401 — HF checkpoint interop (GPT-2 family)
 from . import torch_trainer as torch  # ray_tpu_torch.train.torch.prepare_model(...)
@@ -56,6 +57,9 @@ __all__ = [
     "DataConfig",
     "BaseTrainer",
     "DataParallelTrainer",
+    "GBDTTrainer",
+    "XGBoostTrainer",
+    # reference: "JaxTrainer" (`ray_tpu/train/__init__.py:61`)
     "TorchTrainer",
     "torch",
 ]

@@ -363,3 +363,86 @@ def test_data_phase_rehearsal_on_the_cpu():
         torch.set_num_threads(threads)
     for path in ("data", "hf"):
         assert set(launches[path]) == set(chip_smoke._kernels()) and not any(launches[path].values())
+
+
+def test_gbdt_and_rllib_phases_are_after_data():
+    assert chip_smoke.PHASES.index("gbdt") == chip_smoke.PHASES.index("data") + 1
+    assert chip_smoke.PHASES.index("rllib") == chip_smoke.PHASES.index("gbdt") + 1
+
+
+def test_higgs_like_rows_are_seeded_and_learnable():
+    X, y = chip_smoke.higgs_like(5000, chip_smoke.GBDT_SEED)
+    assert X.shape == (5000, 28) and X.dtype == np.float32 and y.dtype == np.float32
+    assert 0.3 < y.mean() < 0.7 and (X[:, 14:] > 0).all()
+    X2, y2 = chip_smoke.higgs_like(5000, chip_smoke.GBDT_SEED)
+    assert np.array_equal(X, X2) and np.array_equal(y, y2)
+
+
+def test_split_differences_count_reachable_nodes_only():
+    """A differing split counts where a sample can reach it; below a leaf
+    the arrays hold whatever the argmax left, which no prediction reads."""
+    is_leaf = np.array([[False, True, False, True, True, True, True]])
+    a = {"feat": np.array([[1, 0, 2, 0, 0, 0, 0]]), "thresh": np.array([[5, 0, 7, 0, 0, 0, 0]]), "is_leaf": is_leaf}
+    assert chip_smoke._reachable(is_leaf).tolist() == [[True, True, True, False, False, True, True]]
+    b = {k: v.copy() for k, v in a.items()}
+    b["feat"][0, 3] = 4  # below the leaf at node 1: unreachable
+    assert chip_smoke._split_differences(a, b) == []
+    b["thresh"][0, 2] = 8
+    assert chip_smoke._split_differences(a, b) == [(0, 2)]
+
+
+def test_near_tie_finds_complementary_splits():
+    """Two splits that cut a node into the same halves (one the mirror of
+    the other) have equal f64 gains: a gap of 0, a near-tie; a split on a
+    noise feature is not."""
+    from ray_tpu_torch.models import gbdt
+
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((400, 3)).astype(np.float32)
+    X[:, 1] = -X[:, 0]
+    y = (X[:, 0] > 0).astype(np.float32)
+    p = gbdt.GBDTParams(objective="binary_logistic", num_boost_round=1, max_depth=1, max_bins=16)
+    model = gbdt.GradientBoostedTrees(p, device="cpu").fit(X, y)
+    bins = gbdt.apply_bins(X, model.edges)
+    f, b = int(model.trees["feat"][0, 0]), int(model.trees["thresh"][0, 0])
+    assert f in (0, 1)
+    left = bins[:, f] <= b
+    # The mirror split: the other feature's threshold that puts the same rows left... on its right.
+    g = 1 - f
+    mirror = next(t for t in range(16) if np.array_equal(bins[:, g] <= t, ~left))
+    other = {k: v.copy() for k, v in model.trees.items()}
+    other["feat"][0, 0], other["thresh"][0, 0] = g, mirror
+    gap, scale = chip_smoke._near_tie(X, y, other, model.trees, model, 0, 0, p)
+    assert gap <= chip_smoke.GBDT_TIE_TOL * scale
+    other["feat"][0, 0], other["thresh"][0, 0] = 2, 7
+    gap, scale = chip_smoke._near_tie(X, y, other, model.trees, model, 0, 0, p)
+    assert gap > chip_smoke.GBDT_TIE_TOL * scale
+
+
+def test_gbdt_phase_rehearsal_on_the_cpu():
+    """The gbdt phase's control flow on the CPU at a tiny size: two fits
+    equal, the loss falling and beating the base rate, the index_put_
+    histogram deterministic, "card" vs CPU (both the CPU here), and
+    XGBoostTrainer in a cluster on a CPU worker (the rehearsal has no card)
+    with its rows in order and its trees the in-process fit's; 0 launches
+    of each kernel."""
+    spec = chip_smoke.GBDTSpec(rows=6000, valid_rows=2000, rounds=5, parity_rows=3000, parity_rounds=3,
+                               block_rows=1000, init={"num_cpus": 4, "num_gpus": 1}, device="cpu")
+    launches = {}
+    chip_smoke.phase_gbdt(launches, spec)
+    assert set(launches["gbdt"]) == set(chip_smoke._kernels()) and not any(launches["gbdt"].values())
+
+
+def test_rllib_phase_rehearsal_on_the_cpu():
+    """The rllib phase's control flow on the CPU at a small size: PPO
+    CartPole to a low gate, the update "card" vs CPU (both the CPU here),
+    Pendulum, two-policy MultiAgentPPO, the cnn encoder, and the remote
+    runners and a remote learner (a CPU worker here) in a cluster with save
+    -> restore; 0 launches of each kernel."""
+    spec = chip_smoke.RLlibSpec(envs=8, batch=512, minibatch=128, epochs=4, gate=30.0, max_steps=20_000,
+                                remote_runners=2, remote_envs=4, remote_iters=2, pendulum_iters=1, ma_iters=2,
+                                cnn_shape=(16, 16, 4), cnn_batch=8, init={"num_cpus": 4, "num_gpus": 1},
+                                device="cpu")
+    launches = {}
+    chip_smoke.phase_rllib(launches, spec)
+    assert set(launches["rllib"]) == set(chip_smoke._kernels()) and not any(launches["rllib"].values())

@@ -112,9 +112,17 @@ RUNTIME_COPY = (
     "data",
     # HF GPT-2 interop (a port: PORTS).
     "train/huggingface.py",
+    # The GBDT booster (a port: PORTS) and its trainers.
+    "models/gbdt.py", "train/gbdt_trainer.py",
+    # RLlib's core, PPO and multi-agent PPO: the envs, connectors, offline
+    # data and replay buffers copied; the modules, catalog, learner,
+    # optimizer, GAE, runners and PPO ported (PORTS).
+    "rllib/__init__.py", "rllib/env", "rllib/connectors", "rllib/utils", "rllib/offline", "rllib/core",
+    "rllib/algorithms/__init__.py", "rllib/algorithms/algorithm_config.py", "rllib/algorithms/algorithm.py",
+    "rllib/algorithms/ppo.py", "rllib/algorithms/multi_agent_ppo.py",
 )
 # Port-only files inside the copied directories.
-PORT_ONLY = {"core/devices.py", "core/host_names.py"}
+PORT_ONLY = {"core/devices.py", "core/host_names.py", "rllib/utils/tree.py"}
 # Copied files that diverge from the reference, and why.
 DIVERGES = {
     "core/api.py": "init(num_gpus=...) sets the GPU resource",
@@ -164,6 +172,28 @@ DIVERGES = {
     "train/huggingface.py": "the loop on the port's step and AdamW on the card; params through the object "
                             "store: fit() puts config['init_params'] there and a loop gets them by ref; "
                             "TransformersTrainer over TorchTrainer (PORTS)",
+    "models/gbdt.py": "the booster on torch tensors on a device, a deterministic scatter-add (PORTS)",
+    "train/gbdt_trainer.py": "a GPU worker by default; the loop fits on the worker's device; docstrings name "
+                             "the torch booster",
+    "rllib/__init__.py": "exports what is ported (PPO, multi-agent PPO, the env API, runners, connectors, "
+                         "offline, replay buffers); docstring names the torch learner and runners",
+    "rllib/utils/optim.py": "a functional optimizer with optax's semantics in torch (PORTS)",
+    "rllib/utils/gae.py": "the reverse scan as a loop over T in torch (PORTS)",
+    "rllib/core/catalog.py": "encoders in torch: F.conv2d on NCHW with HWIO kernels, the LSTM scan as a loop "
+                             "(PORTS)",
+    "rllib/core/rl_module.py": "modules over trees of torch tensors, torch.Generator sampling, params_from_numpy "
+                               "(PORTS)",
+    "rllib/core/learner.py": "the update eager on a device with a torch.Generator; a GPU-worker learner actor; "
+                             "mesh= raises (PORTS)",
+    "rllib/env/env_runner.py": "the forward in torch on the runner's device, torch.Generator sampling (PORTS)",
+    "rllib/env/ma_runner.py": "per-policy forwards in torch on the runner's device (PORTS)",
+    "rllib/algorithms/algorithm_config.py": "a device field set by resources(device=); the podracer planes "
+                                            "rejected until ported",
+    "rllib/algorithms/algorithm.py": "the learner and local runner on config.device, remote runners CPU actors "
+                                     "on the CPU; the podracer planes raise",
+    "rllib/algorithms/ppo.py": "the update eager in torch, split into permutations and the update given them "
+                               "(PORTS)",
+    "rllib/algorithms/multi_agent_ppo.py": "the learners and runners on config.device",
 }
 # Diverging files that are ports, held by their structure, not line by line:
 # a class (its methods in the reference's order, its step()'s calls in
@@ -185,6 +215,15 @@ PORTS = {
     "train/mpmd/stage.py": {"module": ["train/mpmd/stage.py"]},
     "train/mpmd/local.py": {"module": ["train/mpmd/local.py"]},
     "train/huggingface.py": {"module": ["train/huggingface.py"]},
+    "models/gbdt.py": {"module": ["models/gbdt.py"]},
+    "rllib/utils/optim.py": {"module": ["rllib/utils/optim.py"]},
+    "rllib/utils/gae.py": {"module": ["rllib/utils/gae.py"]},
+    "rllib/core/catalog.py": {"module": ["rllib/core/catalog.py"]},
+    "rllib/core/rl_module.py": {"module": ["rllib/core/rl_module.py"]},
+    "rllib/core/learner.py": {"module": ["rllib/core/learner.py"]},
+    "rllib/env/env_runner.py": {"module": ["rllib/env/env_runner.py"]},
+    "rllib/env/ma_runner.py": {"module": ["rllib/env/ma_runner.py"]},
+    "rllib/algorithms/ppo.py": {"module": ["rllib/algorithms/ppo.py"]},
 }
 
 
@@ -381,6 +420,8 @@ def test_importing_the_port_loads_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.train.gang_check, ray_tpu_torch.train.torch_trainer\n"
         "import ray_tpu_torch.train.mpmd, ray_tpu_torch.train.mpmd.trainer\n"
         "import ray_tpu_torch.data, ray_tpu_torch.data.streaming, ray_tpu_torch.train.huggingface\n"
+        "import ray_tpu_torch.models.gbdt, ray_tpu_torch.train.gbdt_trainer, ray_tpu_torch.rllib\n"
+        "import ray_tpu_torch.rllib.core, ray_tpu_torch.rllib.env.ma_runner, ray_tpu_torch.rllib.offline\n"
         "new = set(sys.modules) - before\n"
         f"print(sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}))\n"
     )
@@ -396,6 +437,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from ray_tpu_torch.serve.engine import InferenceEngine
     from ray_tpu_torch.train.huggingface import TransformersTrainer, _default_train_loop
     from ray_tpu_torch.train.mpmd import MPMDOptions, MPMDTrainer, StageRunner, run_local_pipeline
+    from ray_tpu_torch.models.gbdt import GBDTParams, GradientBoostedTrees
+    from ray_tpu_torch.rllib import EnvRunner, PPOConfig, make_env
+    from ray_tpu_torch.rllib.algorithms.multi_agent_ppo import MultiAgentPPOConfig
+    from ray_tpu_torch.rllib.core import DiscretePolicyModule
+    from ray_tpu_torch.rllib.core.rl_module import params_from_numpy
+    from ray_tpu_torch.rllib.env.multi_agent import make_multi_agent
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = gpt.GPTConfig(vocab_size=16, n_layers=1, d_model=8, n_heads=2, d_head=4, d_mlp=16,
@@ -415,6 +462,14 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: TransformersTrainer(model=(np_params, cfg), datasets={}),
         # A worker without a card, under a driver that has one: the loop refuses.
         lambda: _default_train_loop({"gpt_config": cfg, "init_params": None}),
+        lambda: GradientBoostedTrees(GBDTParams(num_boost_round=1)).fit(np.zeros((4, 1), np.float32),
+                                                                        np.zeros(4, np.float32)),
+        lambda: EnvRunner(env_name="CartPole-v1", num_envs=2, module=DiscretePolicyModule(4, 2)),
+        lambda: params_from_numpy({"w": np.zeros(2, np.float32)}),
+        lambda: PPOConfig().environment("CartPole-v1").training(train_batch_size=64, minibatch_size=32).build(),
+        lambda: MultiAgentPPOConfig().environment(
+            ma_env_maker=make_multi_agent(lambda n, **kw: make_env("CartPole-v1", n), 2)
+        ).multi_agent(shared_policy=True).build(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
