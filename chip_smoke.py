@@ -42,29 +42,30 @@ Phases:
               M=4) on the pp=1 mesh, its first loss within 2e-3 of loss_fn
               and its launches as predicted from M and the layers; the
               pipeline at llama-7b widths (2 layers, f32) card vs CPU in
-              the driver; and gpt2-large at 4 layers, B=4 x S=1024, 10
+              the driver; and gpt2-large at 4 layers, B=4 x S=1024, 6
               steps with an elastic checkpoint every 2, its worker
-              SIGKILLed after step 5: the gang restarts on a new worker
-              from the step-4 commit and every loss equals the unkilled
+              SIGKILLed after step 3: the gang restarts on a new worker
+              from the step-2 commit and every loss equals the unkilled
               run's bit for bit (restart s, checkpoint MB, step ms with and
               without a save in flight)
   6c. mpmd    MPMD pipeline training on the copied runtime: MPMDTrainer gangs
               of GPU-worker stage actors (num_gpus 1/(S*dp) each), 1F1B over
               compiled-DAG edges with ZeRO updates: llama-7b widths (4
               layers, B=8 x S=512, M=4, 2 stages, dp=1; the trainer phase's
-              GPipe cell), its first loss within 2e-3 of loss_fn, falling,
-              launches per step as predicted (step ms, tokens/s, busy and
-              update s per stage, the bubble, edge bytes); the same run
-              interleaved (v=2) with the v=1 losses; run_local_pipeline
+              GPipe cell) on 6 new batches, each step within 2e-2 of the
+              plain step from the same params with the same AdamW, then 4
+              steps on the first two again: its first loss within 2e-3 of
+              loss_fn, falling by the last step, launches per step as
+              predicted (step ms, tokens/s, busy and update s per stage,
+              the bubble, edge bytes); the same run interleaved (v=2) with
+              the v=1 losses; run_local_pipeline
               card vs CPU (llama-7b widths, 2 layers, f32); gpt2-large
               widths (2 layers, tied: the bridge runs) at dp=2, ZeRO, a
               checkpoint every 2 steps, a stage-1 replica SIGKILLed after
               step 3: the gang re-spawns, restores at the common commit and
               repeats an unkilled replicated run's losses bit for bit; ZeRO
               halves the optimizer bytes per replica (restart s, update s,
-              bridge bytes); and 1F1B on a fresh batch every step against
-              the plain step from the same params with the same AdamW,
-              step by step within 2e-2
+              bridge bytes)
   6d. data    the data plane and HF interop on the copied runtime: the
               trainer phase's gpt2-large step through
               TorchTrainer(datasets=), its batches streamed through
@@ -73,7 +74,7 @@ Phases:
               to the driver's plain step on the same rows (tokens/s beside
               the in-process feed, ingest wait per step, seconds to the
               first batch, the ingest's stats); a GPT-2 state dict at
-              gpt2-large widths (HF's names, seeded random) through
+              gpt2-large widths, 24 layers (HF's names, seeded random), through
               config_from_hf -> params_from_hf -> TransformersTrainer: the
               round trip bit for bit, its first loss within 2e-3 of
               loss_fn, its losses bit-equal to the driver's run of the
@@ -95,6 +96,16 @@ Phases:
               GPU worker), 3 iterations, the step count exact, save ->
               restore bit for bit; PPO Pendulum-v1 and MultiAgentPPO (two
               policies); the cnn encoder at 84x84x4, card vs CPU
+  6f'. rllib_algos RLlib's discrete-action algorithms, the learner and local
+              runner on the card: DQN, IMPALA, APPO, A2C, BC and MARWIL to
+              their reference tests' bars within their iteration limits,
+              from their seeds (iterations, env steps, sample and update
+              ms, the DQN update's idle share); one update of each of the
+              eight (Ape-X and CQL too) card vs CPU (f32); IMPALA's async
+              path (2 CPU-actor runners, 5 iterations: the steps, the
+              re-arming and the weight puts exact); Ape-X (2 runners, 2
+              replay shards: sizes, one priority per sampled index); CQL, 3
+              iterations on transition data
   6g. parallel the mesh path on a one-rank NCCL world (make_mesh(), all six
               axes 1): gpt2-medium-moe (8 experts, top-2) training at full
               width through make_train_step(mesh=) (tokens/s, step ms,
@@ -143,7 +154,7 @@ import types
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 PHASES = ("device", "build", "kernels", "parity", "train_parity", "train", "trainer", "mpmd", "data",
-          "gbdt", "rllib", "parallel", "generate", "engine", "runtime", "serve")
+          "gbdt", "rllib", "rllib_algos", "parallel", "generate", "engine", "runtime", "serve")
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, SXM
 H100_F32_FLOPS = 67e12     # CUDA-core f32 peak, SXM
 H100_BYTES_PER_S = 3.35e12
@@ -1049,9 +1060,11 @@ class TrainerSpec:
     parity: tuple = ("llama-7b", {"n_layers": 2, "dtype": "float32"}, (2, 128))
     parity_micro: int = 2
     kill: tuple = ("gpt2-large", {"n_layers": 4}, (4, 1024))
-    kill_steps: int = 10
+    # 10 steps, killed after step 5, until the rllib_algos phase joined the
+    # script (its time limit); still one step past the last commit.
+    kill_steps: int = 6
     save_every: int = 2
-    kill_after: int = 5
+    kill_after: int = 3
     init: dict = dataclasses.field(default_factory=lambda: {"log_to_driver": False})
     device: str | None = None
     threads: int | None = None
@@ -1526,12 +1539,19 @@ class MPMDSpec:
     micro: int = 4
     chunks: int = 2
     warm: int = 2
-    timed: int = 4
-    # The pool runs' batches: step s takes batch s mod `pool`, and the loss
-    # falls as the model fits them. On a new batch every step (the `fresh`
-    # run) it does not fall in 6 steps at lr 3e-4 (llama-7b widths: 11.17,
-    # 19.78 at step 3, 11.47 on an H100) and the plain step from the same
-    # params does the same: that run is held to the plain step instead.
+    timed: int = 8
+    # The 1F1B runs' batches: a new batch each of the first `fresh` steps,
+    # then the first `pool` batches again in turn (`_mpmd_schedule`). On new
+    # batches the loss does not fall in 6 steps at lr 3e-4 (llama-7b widths:
+    # 11.17, 19.78 at step 3, 11.47 on an H100) and the plain step from the
+    # same params does the same, so those steps are held to the plain step;
+    # on the pool the loss falls as the model fits it, and the two part
+    # (the plain step's losses 2.1257 -> 0.7848 over 4 pool steps, 1F1B's
+    # 2.1251 -> 0.7647, 2.56e-02 apart at the fourth on an H100: bf16 sums
+    # in another order, amplified as the model memorises two batches).
+    # The pool and the new batches were two gangs until the rllib_algos
+    # phase joined the script.
+    fresh: int = 6
     pool: int = 2
     parity: tuple = ("llama-7b", {"n_layers": 2, "dtype": "float32"}, (2, 128))
     parity_micro: int = 2
@@ -1633,6 +1653,13 @@ def _mpmd_parity(spec: MPMDSpec, counts: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def _mpmd_schedule(spec: MPMDSpec, s: int) -> int:
+    """The offset from the run's batch seed of the batch 1F1B step s
+    (0-based) takes: s for the first `spec.fresh` steps, then the pool's
+    batches in turn."""
+    return s if s < spec.fresh else (s - spec.fresh) % spec.pool
+
+
 def _mpmd_plain(cfg, spec: MPMDSpec, seed: int, batch_seed: int, steps: int) -> list:
     """The plain step (`make_train_step`, no pipeline) in the driver from
     the MPMD run's params (`init_params(seed)` on the CPU) with its AdamW
@@ -1661,19 +1688,20 @@ def _mpmd_plain(cfg, spec: MPMDSpec, seed: int, batch_seed: int, steps: int) -> 
 
 
 def _mpmd_fit(cfg, spec: MPMDSpec, storage: str, name: str, job: tuple, seed: int, batch_seed: int,
-              steps: int, batch_hook=None, holder: dict | None = None, pool: int | None = None, **options):
+              steps: int, batch_hook=None, holder: dict | None = None, scheduled: bool = False, **options):
     """One MPMDTrainer.fit() (a fresh gang of GPU-worker stage actors).
-    Step s takes the batch of seed `batch_seed + s` (with `pool`, of
-    `batch_seed + s % pool`: a few batches seen again, so the loss falls as
-    the model fits them); `batch_hook(step)` runs in the driver before each
-    step's batch, and `holder["trainer"]` is the trainer while it runs."""
+    Step s takes the batch of seed `batch_seed + s` (`scheduled`: of
+    `batch_seed + _mpmd_schedule(spec, s)`, new batches and then a few seen
+    again, so the loss falls as the model fits them); `batch_hook(step)`
+    runs in the driver before each step's batch, and `holder["trainer"]` is
+    the trainer while it runs."""
     from ray_tpu_torch.train import FailureConfig, RunConfig
     from ray_tpu_torch.train.mpmd import MPMDOptions, MPMDTrainer
 
     def batch_fn(step):
         if batch_hook is not None:
             batch_hook(step)
-        return _mpmd_batch(cfg, job[2], batch_seed + (step % pool if pool else step))
+        return _mpmd_batch(cfg, job[2], batch_seed + (_mpmd_schedule(spec, step) if scheduled else step))
 
     opts = MPMDOptions(**{"num_stages": spec.stages, "seed": seed, "device": spec.device, "step_timeout_s": 600.0,
                           "channel_timeout_s": 600.0, "ckpt_every": 10 ** 6, **spec.adamw, **options})
@@ -1740,9 +1768,9 @@ def phase_mpmd(launches: dict, gpipe: dict | None = None, spec: MPMDSpec | None 
     (num_gpus=1/(S*dp) each) exchanging activations and gradients over
     compiled-DAG edges, each stage's dp replicas running the ZeRO update
     over the host-plane collectives. The 1F1B cell (the trainer phase's
-    GPipe cell) and its interleaved twin on a pool of batches, and 1F1B on
-    a fresh batch every step held to the plain step from the same params
-    with the same AdamW (2e-2 a step); the card-vs-CPU parity in the
+    GPipe cell) and its interleaved twin on new batches, held to the plain
+    step from the same params with the same AdamW (2e-2 a step), and then
+    on a pool of them seen again, the loss falling; the card-vs-CPU parity in the
     driver; gpt2-large widths at dp=2 (tied: the bridge runs) with a
     stage-1 replica SIGKILLed after the `kill_after` result, resumed at the
     common commit. Launches are counted in each actor, per step."""
@@ -1780,7 +1808,7 @@ def phase_mpmd(launches: dict, gpipe: dict | None = None, spec: MPMDSpec | None 
     del params, full
     if on_card:
         torch.cuda.empty_cache()
-    plain_losses = _mpmd_plain(cfg, spec, seed=7, batch_seed=100, steps=steps)
+    plain_losses = _mpmd_plain(cfg, spec, seed=7, batch_seed=100, steps=spec.fresh)
     free_before = torch.cuda.mem_get_info()[0] if on_card else None
 
     storage = tempfile.mkdtemp(prefix="rtput-mpmd-")
@@ -1791,12 +1819,12 @@ def phase_mpmd(launches: dict, gpipe: dict | None = None, spec: MPMDSpec | None 
     try:
         log(f"mpmd: cluster up in {time.perf_counter() - t0:.2f} s, resources {rt.cluster_resources()}")
 
-        # 2. 1F1B and interleaved 1F1B at llama-7b widths on the pool's
-        # batches, then 1F1B on a fresh batch every step.
+        # 2. 1F1B and interleaved 1F1B at llama-7b widths, new batches and
+        # then the pool's.
         runs = {}
-        for name, chunks, pool in (("v1", 1, spec.pool), (f"v{v}", v, spec.pool), ("fresh", 1, None)):
+        for name, chunks in (("v1", 1), (f"v{v}", v)):
             res = _mpmd_fit(cfg, spec, storage, f"pipe-{name}", spec.pipe, seed=7, batch_seed=100, steps=steps,
-                            pool=pool, dp=1, num_microbatches=M, num_chunks=chunks, zero=True,
+                            scheduled=True, dp=1, num_microbatches=M, num_chunks=chunks, zero=True,
                             num_gpus_per_replica=1.0 / S)
             runs[name] = res
             _wait_card_released(free_before, f"pipe {name}")
@@ -1815,7 +1843,7 @@ def phase_mpmd(launches: dict, gpipe: dict | None = None, spec: MPMDSpec | None 
             against = "" if not gpipe else \
                 f"; the GPipe cell {gpipe['step_ms']:.1f} ms, {gpipe['tokens_per_s']:.1f} tokens/s"
             log(f"mpmd 1F1B {spec.pipe[0]} {spec.pipe[1]} B={B} S={Sq} M={M} stages={S} v={chunks} dp=1 ZeRO, "
-                f"{'a fresh batch every step' if name == 'fresh' else f'the pool of {spec.pool} batches'}: loss "
+                f"{spec.fresh} new batches, then the pool of {spec.pool}: loss "
                 f"{hist[0]['loss']:.6f} -> {hist[-1]['loss']:.6f} over {len(hist)} steps; step "
                 f"{step_s * 1e3:.1f} ms, {B * Sq / step_s:.1f} tokens/s (mean of {len(timed)} after {spec.warm} "
                 f"warm-up){against}; "
@@ -1839,13 +1867,13 @@ def phase_mpmd(launches: dict, gpipe: dict | None = None, spec: MPMDSpec | None 
             f"{'bit for bit' if l1 == l2 else 'NOT bit-equal'} (worst rel diff {worst:.2e})")
         if worst > 1e-3 or len(l1) != len(l2):
             raise AssertionError(f"mpmd interleaved: losses {l2} vs v=1 {l1} (tol 1e-3)")
-        fresh = [h["loss"] for h in runs["fresh"]["history"]]
+        fresh = l1[:spec.fresh]
         diffs = [abs(a - b) / abs(b) for a, b in zip(fresh, plain_losses)]
-        log(f"mpmd 1F1B on fresh batches vs the plain step (same params, batches and AdamW): losses "
+        log(f"mpmd 1F1B on its {spec.fresh} new batches vs the plain step (same params, batches and AdamW): losses "
             f"{[round(x, 6) for x in fresh]} vs {[round(x, 6) for x in plain_losses]}; rel diff by step "
-            f"{[f'{d:.2e}' for d in diffs]}")
+            f"{[f'{d:.2e}' for d in diffs]}; then on the pool {[round(x, 6) for x in l1[spec.fresh:]]}")
         if len(fresh) != len(plain_losses) or max(diffs) > 2e-2:
-            raise AssertionError(f"mpmd 1F1B on fresh batches: losses {fresh} vs the plain step's {plain_losses} "
+            raise AssertionError(f"mpmd 1F1B on new batches: losses {fresh} vs the plain step's {plain_losses} "
                                  "(tol 2e-2 relative)")
 
         # 3. ZeRO over dp with the bridge: the unkilled replicated run, then
@@ -1966,8 +1994,13 @@ class DataSpec:
     warm: int = 2
     timed: int = 5
     parallelism: int = 8
+    # gpt2-large's widths at 24 of its 36 layers (36 until the rllib_algos
+    # phase joined the script, whose time limit it is; the fit's time is
+    # the params through the object store, not steps): 2.15 GB of f32
+    # params, still past the 2 GB a task message carries, which is why
+    # TransformersTrainer.fit puts them in the store.
     hf: dict = dataclasses.field(default_factory=lambda: dict(
-        n_embd=1280, n_layer=36, n_head=20, n_inner=5120, vocab_size=50257, n_positions=1024))
+        n_embd=1280, n_layer=24, n_head=20, n_inner=5120, vocab_size=50257, n_positions=1024))
     hf_rows: int = 64
     hf_batch: int = 8
     hf_steps: int = 4
@@ -2207,9 +2240,10 @@ def phase_data(launches: dict, trainer: dict | None = None, spec: DataSpec | Non
     back = params_to_hf_state_dict(params, hcfg, hf_vocab_size=hf_cfg.vocab_size)
     exact = set(back) == set(sd) and all(back[k].dtype == v.dtype and torch.equal(back[k], v) for k, v in sd.items())
     n_params = sum(v.numel() for k, v in sd.items() if k != "lm_head.weight")
+    n_bytes = sum(v.nbytes for v in params.values())
     log(f"data hf: state dict of {n_params / 1e6:.1f} M params ({len(sd)} tensors) -> config_from_hf -> "
         f"params_from_hf -> params_to_hf_state_dict: {'bit for bit' if exact else 'NOT equal'} "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"({time.perf_counter() - t0:.1f} s); {n_bytes / 1e9:.3f} GB of params for the object store")
     if not exact:
         raise AssertionError("data hf: params_to_hf_state_dict(params_from_hf(sd)) differs from sd")
     del back
@@ -2846,6 +2880,35 @@ class _TimedStore:
         return getattr(self._ray, name)
 
 
+class _LearnerTap:
+    """Wraps an algorithm's sampling and learner update: each call's host
+    seconds, the last batch the learner got, and how many it got."""
+
+    def __init__(self, algo):
+        self.sample_s, self.update_s, self.batch = [], [], None
+        sample, update = algo._sample_batches, algo.learner_group.update
+
+        def timed_sample():
+            t0 = time.perf_counter()
+            out = sample()
+            self.sample_s.append(time.perf_counter() - t0)
+            return out
+
+        def timed_update(batch):
+            self.batch = batch
+            t0 = time.perf_counter()
+            out = update(batch)
+            self.update_s.append(time.perf_counter() - t0)
+            return out
+
+        algo._sample_batches, algo.learner_group.update = timed_sample, timed_update
+        self._update = update
+
+    @staticmethod
+    def p50_ms(xs) -> float:
+        return sorted(xs)[len(xs) // 2] * 1e3 if xs else float("nan")
+
+
 def phase_rllib(launches: dict, spec: RLlibSpec | None = None) -> None:
     """RLlib's core and PPO on the card through their entry points: PPO
     CartPole-v1 (BASELINE config #1) with the learner and the local runner
@@ -2870,6 +2933,7 @@ def phase_rllib(launches: dict, spec: RLlibSpec | None = None) -> None:
     from ray_tpu_torch.rllib.algorithms.multi_agent_ppo import MultiAgentPPOConfig
     from ray_tpu_torch.rllib.core import catalog
     from ray_tpu_torch.rllib.env.multi_agent import make_multi_agent
+    from ray_tpu_torch.rllib.utils import optim
     from ray_tpu_torch.rllib.utils.optim import make_optimizer
     from ray_tpu_torch.rllib.utils.tree import to_device, to_numpy, tree_leaves, tree_unflatten_like
 
@@ -2884,23 +2948,7 @@ def phase_rllib(launches: dict, spec: RLlibSpec | None = None) -> None:
     try:
         # 1. Learning: BASELINE config #1.
         algo = _ppo_config(spec, spec.device).build()
-        sample_s, update_s, batches = [], [], []
-        sample, update = algo._sample_batches, algo.learner_group.update
-
-        def timed_sample():
-            t0 = time.perf_counter()
-            out = sample()
-            sample_s.append(time.perf_counter() - t0)
-            return out
-
-        def timed_update(batch):
-            batches[:] = [batch]
-            t0 = time.perf_counter()
-            out = update(batch)
-            update_s.append(time.perf_counter() - t0)
-            return out
-
-        algo._sample_batches, algo.learner_group.update = timed_sample, timed_update
+        tap = _LearnerTap(algo)
         best, curve, reached = float("-inf"), [], None
         t0 = time.perf_counter()
         with counted(counts):
@@ -2918,25 +2966,25 @@ def phase_rllib(launches: dict, spec: RLlibSpec | None = None) -> None:
         steps_total = r["timesteps_total"]
         busy = None
         if on_card:
-            busy = _profile("rllib ppo update (one iteration)", lambda: update(batches[0]))
+            busy = _profile("rllib ppo update (one iteration)", lambda: tap._update(tap.batch))
         log(f"rllib PPO CartPole-v1 on {device} (learner and local runner; {spec.envs} envs, batch {spec.batch}, "
             f"minibatch {spec.minibatch}, {spec.epochs} epochs, lr {spec.lr}, entropy {spec.entropy}, seed 0): "
             f"mean reward by iteration {curve}; "
             + (f"reached {spec.gate} at iteration {reached[0]}, {reached[1]} env steps" if reached else
                f"did NOT reach {spec.gate} within {spec.max_steps} env steps (best {best:.1f})")
             + f"; {steps_total / learn_s:.1f} env steps/s over {learn_s:.1f} s; per iteration sample "
-            f"{sorted(sample_s)[len(sample_s) // 2] * 1e3:.1f} ms, update {sorted(update_s)[len(update_s) // 2] * 1e3:.1f}"
-            f" ms (p50 of {len(update_s)}); device events in one update {busy}")
+            f"{_LearnerTap.p50_ms(tap.sample_s):.1f} ms, update {_LearnerTap.p50_ms(tap.update_s):.1f}"
+            f" ms (p50 of {len(tap.update_s)}); device events in one update {busy}")
         if reached is None:
             raise AssertionError(f"rllib: PPO CartPole did not reach {spec.gate} within {spec.max_steps} env steps "
                                  f"(best {best:.1f}; by iteration {curve})")
 
         # 2. One update card vs CPU on the recorded batch, params and permutations.
         cfg = algo.config
-        batch = batches[0]
+        batch = tap.batch
         T, B = batch["rewards"].shape
         N = T * B
-        perms = ppo.ppo_perms(torch.Generator().manual_seed(1), N, cfg.num_epochs, N // cfg.minibatch_size,
+        perms = optim.minibatch_perms(torch.Generator().manual_seed(1), N, cfg.num_epochs, N // cfg.minibatch_size,
                               cfg.minibatch_size)
         state = to_numpy((learner.params, learner.opt_state))
         outs = {}
@@ -3074,6 +3122,303 @@ def phase_rllib(launches: dict, spec: RLlibSpec | None = None) -> None:
         f"{time.perf_counter() - t_phase:.1f} s")
     if any(counts.get(k, 0) for k in _kernels()):
         raise AssertionError(f"rllib: an attention or RMSNorm kernel was launched: {counts}")
+
+
+# ------------------------------------------------------------- rllib_algos
+# name -> (mean reward bar, iteration limit): the reference tests' own
+# (`tests/test_rllib_algos.py:37-74,194-207`, `tests/test_rllib_offline.py:30-48,167-202`).
+RL_BARS = {"dqn": (130.0, 80), "impala": (130.0, 250), "appo": (130.0, 250), "a2c": (120.0, 150),
+           "bc": (150.0, 10), "marwil": (150.0, 15)}
+
+
+@dataclasses.dataclass
+class RLlibAlgosSpec:
+    """What the rllib_algos phase runs. `bars`: each algorithm's learning
+    bar and iteration limit at the reference test's settings and seed;
+    `async_*`: IMPALA's async path (remote CPU-actor runners, the learner
+    on the card); `apex_*`: Ape-X with its replay shards; `cql_iters`: CQL
+    on transition data (no bar: the reference has no test of it). `device`
+    None: the card; the CPU rehearsal (tests/test_torch_chip_smoke.py)
+    passes low bars on "cpu"."""
+
+    bars: dict = dataclasses.field(default_factory=lambda: dict(RL_BARS))
+    async_runners: int = 2
+    async_envs: int = 8
+    async_iters: int = 5
+    apex_runners: int = 2
+    apex_shards: int = 2
+    apex_iters: int = 4
+    cql_iters: int = 3
+    init: dict = dataclasses.field(default_factory=lambda: {"log_to_driver": False})
+    device: str | None = None
+
+
+def _cartpole_expert(obs):
+    """The reference tests' scripted CartPole expert (`tests/test_rllib_offline.py:14-17`)."""
+    import numpy as np
+
+    return (obs[:, 2] + 0.5 * obs[:, 3] > 0).astype(np.int64)
+
+
+def _rl_algo_configs(device) -> dict:
+    """name -> zero-arg builder of the algorithm at its reference test's
+    settings and seed, its learner and local runner on `device`."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import (A2CConfig, APPOConfig, BCConfig, DQNConfig, IMPALAConfig,
+                                     MARWILConfig)
+    from ray_tpu_torch.rllib.offline import OfflineDataset, collect_dataset
+
+    def bc():
+        demos = collect_dataset("CartPole-v1", _cartpole_expert, n_steps=4096, num_envs=8, seed=3)
+        return (BCConfig().environment("CartPole-v1").training(lr=1e-3, train_batch_size=2048)
+                .offline_data(dataset=demos).resources(device=device).build())
+
+    def marwil():
+        rng = np.random.default_rng(0)
+        expert = collect_dataset("CartPole-v1", _cartpole_expert, n_steps=3072, num_envs=8, seed=5)
+        rand = collect_dataset("CartPole-v1", lambda obs: rng.integers(0, 2, size=len(obs)), n_steps=3072,
+                               num_envs=8, seed=6)
+        mixed = OfflineDataset(np.concatenate([expert.obs, rand.obs]), np.concatenate([expert.actions, rand.actions]),
+                               np.concatenate([expert.returns, rand.returns]))
+        return (MARWILConfig().environment("CartPole-v1").training(lr=1e-3, train_batch_size=2048, beta=1.0)
+                .offline_data(dataset=mixed).resources(device=device).build())
+
+    return {
+        "dqn": lambda: (DQNConfig().environment("CartPole-v1")
+                        .env_runners(num_env_runners=0, num_envs_per_env_runner=8)
+                        .training(train_batch_size=512, learning_starts=1000, num_grad_steps=64,
+                                  epsilon_decay_steps=10_000, lr=5e-4)
+                        .debugging(seed=0).resources(device=device).build()),
+        "impala": lambda: (IMPALAConfig().environment("CartPole-v1")
+                           .env_runners(num_env_runners=0, num_envs_per_env_runner=16, rollout_fragment_length=16)
+                           .training(train_batch_size=256, lr=1e-3, entropy_coeff=0.01)
+                           .debugging(seed=0).resources(device=device).build()),
+        "appo": lambda: (APPOConfig().environment("CartPole-v1")
+                         .env_runners(num_env_runners=0, num_envs_per_env_runner=16, rollout_fragment_length=16)
+                         .training(train_batch_size=256, lr=1e-3, entropy_coeff=0.005)
+                         .debugging(seed=0).resources(device=device).build()),
+        "a2c": lambda: (A2CConfig().environment("CartPole-v1")
+                        .env_runners(num_env_runners=0, num_envs_per_env_runner=16)
+                        .training(train_batch_size=1024, lr=7e-4, model={"hidden": (64, 64)})
+                        .debugging(seed=0).resources(device=device).build()),
+        "bc": bc,
+        "marwil": marwil,
+    }
+
+
+def _rl_update_pair(learner, state, batch, device, perms=None):
+    """The learner's update from `state` on `batch`, on `device` and on the
+    CPU (permutations given when the update draws them): (params worst
+    error of each tensor's largest entry, metrics worst |d| / max(|cpu|, 1))."""
+    from ray_tpu_torch.rllib.utils.tree import to_device
+
+    outs = {}
+    for dev in (device, "cpu"):
+        fn = learner._update if perms is None else learner._update.with_perms
+        args = (to_device(state, dev), to_device(batch, dev))
+        outs[dev] = fn(*args, perms.to(dev)) if perms is not None else fn(*args, None)
+    (p_dev, _), m_dev = outs[device]
+    (p_cpu, _), m_cpu = outs["cpu"]
+    merr = max(abs(float(m_dev[k]) - float(m_cpu[k])) / max(abs(float(m_cpu[k])), 1.0) for k in m_cpu)
+    return max(_leaf_errors(p_dev, p_cpu)), merr
+
+
+def phase_rllib_algos(launches: dict, spec: RLlibAlgosSpec | None = None) -> None:
+    """RLlib's discrete-action algorithms on the card through their entry
+    points: DQN, IMPALA, APPO, A2C, BC and MARWIL to their reference tests'
+    learning bars (settings, seeds and iteration limits the tests'), the
+    learner and the local runner on the card; one update of each of the
+    eight (Ape-X and CQL too) card vs CPU (f32, TF32 off); IMPALA's async
+    path with remote CPU-actor runners; Ape-X with its replay shards; CQL
+    on transition data. Records iterations and env steps to each bar, env
+    steps/s, sample and update ms, the DQN update's device idle share, the
+    card-vs-CPU errors, the shards' sizes and priority writes."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api
+    from ray_tpu_torch.rllib import ApexDQNConfig, CQLConfig, IMPALAConfig
+    from ray_tpu_torch.rllib.offline import collect_dataset
+    from ray_tpu_torch.rllib.utils import optim
+    from ray_tpu_torch.rllib.utils.tree import to_numpy
+
+    spec = spec or RLlibAlgosSpec()
+    on_card = spec.device is None
+    device = "cuda" if on_card else spec.device
+    t_phase = time.perf_counter()
+    counts: dict = {}
+    errors: dict = {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        # 1. Learning bars; 2. each algorithm's update card vs CPU on its last batch.
+        builders = _rl_algo_configs(spec.device)
+        missed = []
+        for name, (bar, max_iters) in spec.bars.items():
+            algo = builders[name]()
+            tap = _LearnerTap(algo)
+            offline = name in ("bc", "marwil")
+            best, curve, reached = float("-inf"), [], None
+            t0 = time.perf_counter()
+            with counted(counts):
+                for _ in range(max_iters):
+                    r = algo.train()
+                    m = r["evaluation"]["episode_reward_mean"] if offline else r["episode_reward_mean"]
+                    curve.append(round(m, 1))
+                    if np.isfinite(m):
+                        best = max(best, m)
+                    if best >= bar:
+                        reached = (r["training_iteration"], r["timesteps_total"])
+                        break
+            learn_s = time.perf_counter() - t0
+            steps = r["timesteps_total"]
+            learner = algo.learner_group.local_learner
+            busy = None
+            if name == "dqn" and on_card:
+                busy = _profile("rllib_algos dqn update (one iteration, 64 minibatches)",
+                                lambda: tap._update(tap.batch))
+            log(f"rllib_algos {name} CartPole-v1 on {device}: mean reward by iteration {curve}; "
+                + (f"reached {bar} at iteration {reached[0]}, {reached[1]} env steps" if reached else
+                   f"did NOT reach {bar} within {max_iters} iterations (best {best:.1f})")
+                + f"; {learn_s:.1f} s"
+                + (f", {steps / learn_s:.1f} env steps/s" if steps else "")
+                + f"; per iteration sample {_LearnerTap.p50_ms(tap.sample_s):.1f} ms, update "
+                f"{_LearnerTap.p50_ms(tap.update_s):.1f} ms (p50 of {len(tap.update_s)})"
+                + (f"; device events in one update {busy}" if busy is not None else ""))
+            if reached is None:
+                missed.append(f"{name} best {best:.1f} < {bar} in {max_iters}")
+            state = to_numpy((learner.params, learner.opt_state))
+            perms = None
+            if offline:
+                cfg = algo.config
+                n_mb = cfg.train_batch_size // cfg.minibatch_size
+                perms = optim.minibatch_perms(torch.Generator().manual_seed(1), cfg.train_batch_size, cfg.num_epochs, n_mb,
+                                      cfg.minibatch_size)
+            with counted(counts):
+                errors[name] = _rl_update_pair(learner, state, tap.batch, device, perms)
+            algo.stop()
+        if missed:
+            raise AssertionError(f"rllib_algos: learning bars missed: {missed}")
+
+        # CQL on transition data (3 iterations; no bar, as the reference has no test).
+        ds = collect_dataset("CartPole-v1", _cartpole_expert, n_steps=4096, num_envs=8, seed=3, transitions=True)
+        cql = CQLConfig().environment("CartPole-v1").offline_data(dataset=ds).debugging(seed=0) \
+            .resources(device=spec.device).build()
+        tap = _LearnerTap(cql)
+        t0 = time.perf_counter()
+        with counted(counts):
+            cres = [cql.train() for _ in range(spec.cql_iters)]
+        cql_s = time.perf_counter() - t0
+        cm = [r["info"]["learner"] for r in cres]
+        learner = cql.learner_group.local_learner
+        cfg = cql.config
+        perms = optim.minibatch_perms(torch.Generator().manual_seed(1), cfg.train_batch_size, cfg.num_epochs,
+                              cfg.train_batch_size // cfg.minibatch_size, cfg.minibatch_size)
+        with counted(counts):
+            errors["cql"] = _rl_update_pair(learner, to_numpy((learner.params, learner.opt_state)), tap.batch,
+                                            device, perms)
+        cql.stop()
+        log(f"rllib_algos cql on {device} ({len(ds)} expert transitions, batch {cfg.train_batch_size}, "
+            f"{cfg.num_epochs} epochs of {cfg.train_batch_size // cfg.minibatch_size} minibatches): td_loss "
+            f"{[round(m['td_loss'], 5) for m in cm]}, cql_penalty {[round(m['cql_penalty'], 5) for m in cm]}, "
+            f"greedy evaluation {[round(r['evaluation']['episode_reward_mean'], 1) for r in cres]}; {cql_s:.1f} s, "
+            f"update {_LearnerTap.p50_ms(tap.update_s):.1f} ms (p50)")
+        if not all(math.isfinite(m["td_loss"]) and math.isfinite(m["cql_penalty"]) for m in cm):
+            raise AssertionError(f"rllib_algos cql: non-finite losses {cm}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    # 3. IMPALA's async path and 4. Ape-X, on one cluster.
+    rt.init(**spec.init)
+    backend = api._global_runtime().backend
+    session_dir, controller = backend.session_dir, backend._controller_proc.pid
+    try:
+        algo = (IMPALAConfig().environment("CartPole-v1")
+                .env_runners(num_env_runners=spec.async_runners, num_envs_per_env_runner=spec.async_envs,
+                             rollout_fragment_length=16)
+                .training(train_batch_size=256, lr=1e-3, entropy_coeff=0.01, broadcast_interval=2)
+                .debugging(seed=0).resources(device=spec.device).build())
+        puts: list = []
+        algo._ray = _TimedStore(algo._ray, puts)
+        tap = _LearnerTap(algo)
+        rearmed, rhos, t0 = [], [], time.perf_counter()
+        with counted(counts):
+            for _ in range(spec.async_iters):
+                r = algo.train()
+                rearmed.append(sorted(map(id, algo._inflight.values())) == sorted(map(id, algo._remote_runners)))
+                rhos.append(r["info"]["learner"].get("mean_rho", float("nan")))
+        async_s = time.perf_counter() - t0
+        frag = 16 * spec.async_envs
+        consumed = len(tap.update_s)
+        steps = r["timesteps_total"]
+        want_puts = spec.async_iters + consumed // 2
+        log(f"rllib_algos impala async: {spec.async_runners} runners (CPU actors, {spec.async_envs} envs, fragments "
+            f"of {frag} steps), the learner on {device}, {spec.async_iters} iterations: {consumed} fragments "
+            f"consumed, {steps} env steps ({steps / async_s:.1f}/s), every consumed runner re-armed {all(rearmed)}, "
+            f"weights put {len(puts)} times (want {want_puts}: one arming per iteration, one per 2 updates), "
+            f"update {_LearnerTap.p50_ms(tap.update_s):.1f} ms (p50), mean_rho by iteration {rhos}")
+        algo.stop()
+        if steps != frag * consumed or not all(rearmed) or len(puts) != want_puts \
+                or not all(math.isfinite(x) for x in rhos):
+            raise AssertionError(f"rllib_algos impala async: steps {steps} for {consumed} fragments, re-armed "
+                                 f"{rearmed}, puts {len(puts)} (want {want_puts}), mean_rho {rhos}")
+
+        apex = (ApexDQNConfig().environment("CartPole-v1")
+                .env_runners(num_env_runners=spec.apex_runners, num_envs_per_env_runner=8)
+                .training(num_replay_shards=spec.apex_shards).debugging(seed=0).resources(device=spec.device).build())
+        td_errors, writes, mbs = apex._td_errors, [], []
+
+        def counted_td(batch):
+            out = td_errors(batch)
+            writes.append((batch["obs"].shape[0] * batch["obs"].shape[1], out.size))
+            mbs[:] = [batch]
+            return out
+
+        apex._td_errors = counted_td
+        t0 = time.perf_counter()
+        with counted(counts):
+            ares = [apex.train() for _ in range(spec.apex_iters)]
+        apex_s = time.perf_counter() - t0
+        sizes = rt.get([s.size.remote() for s in apex._shards])
+        pushed = ares[-1]["timesteps_total"]
+        weights = [rt.get(s.sample.remote(1, 256))[0]["weights"] for s in apex._shards]
+        moved = all(float(w.min()) < 1.0 for w in weights)
+        best = max((r["episode_reward_mean"] for r in ares if math.isfinite(r["episode_reward_mean"])),
+                   default=float("nan"))
+        td_loss = ares[-1]["info"]["learner"]["td_loss"]
+        learner = apex.learner_group.local_learner
+        with counted(counts):
+            errors["apex_dqn"] = _rl_update_pair(learner, to_numpy((learner.params, learner.opt_state)), mbs[0],
+                                                 device)
+        log(f"rllib_algos apex_dqn: {spec.apex_runners} runners (CPU actors, 8 envs), {spec.apex_shards} replay "
+            f"shards (CPU actors), the learner on {device}, {spec.apex_iters} iterations: shard sizes {sizes} "
+            f"(sum {sum(sizes)}, env steps pushed {pushed}); {len(writes)} priority writes of "
+            f"{sorted(set(n for n, _ in writes))} transitions each ({'one per sampled index' if all(n == m for n, m in writes) else 'NOT one per index'}); "
+            f"sampling weights below 1 after the writes {moved}; td_loss {td_loss:.5f}; best mean reward {best:.1f} "
+            f"(no bar: the reference has none); {pushed / apex_s:.1f} env steps/s")
+        apex.stop()
+        if sum(sizes) != pushed or not writes or not all(n == m for n, m in writes) or not moved \
+                or not math.isfinite(td_loss):
+            raise AssertionError(f"rllib_algos apex: sizes {sizes} vs {pushed}, writes {writes}, moved {moved}, "
+                                 f"td_loss {td_loss}")
+    finally:
+        left = _end_session(controller, session_dir)
+    if left:
+        raise AssertionError(f"rllib_algos: processes outlived shutdown (killed): {left}")
+
+    log("rllib_algos one update card vs CPU (f32, TF32 off; params: worst of each tensor's largest entry, "
+        "metrics: worst |d| / max(|cpu|, 1)): "
+        + ", ".join(f"{k} {p:.3e} / {m:.3e}" for k, (p, m) in errors.items()) + f" (tol {RL_TOL})")
+    bad = {k: v for k, v in errors.items() if max(v) > RL_TOL}
+    if bad:
+        raise AssertionError(f"rllib_algos card vs CPU above {RL_TOL}: {bad}")
+    launches["rllib_algos"] = counts
+    log(f"rllib_algos launches {counts}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    if any(counts.get(k, 0) for k in _kernels()):
+        raise AssertionError(f"rllib_algos: an attention or RMSNorm kernel was launched: {counts}")
 
 
 
@@ -4196,54 +4541,81 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device 0: "
         f"{torch.cuda.get_device_name(0)}; {torch.cuda.device_count()} visible")
 
+    walls: dict = {}  # phase -> its seconds
+
+    @contextlib.contextmanager
+    def wall(name):
+        t0 = time.perf_counter()
+        yield
+        walls[name] = round(time.perf_counter() - t0, 1)
+
     if "build" in phases or "kernels" in phases:
-        build.library()
-        log(f"build: {build.build_seconds:.1f} s into {build.build_dir()}")
-        check_build(build)
+        with wall("build"):
+            build.library()
+            log(f"build: {build.build_seconds:.1f} s into {build.build_dir()}")
+            check_build(build)
 
     results: dict = {}
     if "kernels" in phases:
-        phase_kernels(results)
+        with wall("kernels"):
+            phase_kernels(results)
     if "parity" in phases:
-        phase_parity()
+        with wall("parity"):
+            phase_parity()
     launches: dict = {}  # path -> kernel -> launches in that path's run
     if "train_parity" in phases:
-        phase_train_parity(launches)
+        with wall("train_parity"):
+            phase_train_parity(launches)
     if "train" in phases:
-        phase_train(launches)
+        with wall("train"):
+            phase_train(launches)
     trained = None
     if "trainer" in phases:
-        trained = phase_trainer(launches)
+        with wall("trainer"):
+            trained = phase_trainer(launches)
     if "mpmd" in phases:
-        phase_mpmd(launches, trained)
+        with wall("mpmd"):
+            phase_mpmd(launches, trained)
     if "data" in phases:
-        phase_data(launches, trained)
+        with wall("data"):
+            phase_data(launches, trained)
     if "gbdt" in phases:
-        phase_gbdt(launches)
+        with wall("gbdt"):
+            phase_gbdt(launches)
     if "rllib" in phases:
-        phase_rllib(launches)
+        with wall("rllib"):
+            phase_rllib(launches)
+    if "rllib_algos" in phases:
+        with wall("rllib_algos"):
+            phase_rllib_algos(launches)
     if "parallel" in phases:
-        phase_parallel(launches)
+        with wall("parallel"):
+            phase_parallel(launches)
     generated = served = None
     if "generate" in phases or "engine" in phases:
-        cfg, params = _llama_params()
+        with wall("llama-7b params"):
+            cfg, params = _llama_params()
         if "generate" in phases:
-            generated = phase_generate(cfg, params, launches)
+            with wall("generate"):
+                generated = phase_generate(cfg, params, launches)
         if "engine" in phases:
-            served = phase_engine(cfg, params, launches)
+            with wall("engine"):
+                served = phase_engine(cfg, params, launches)
         del params  # the runtime phase's actor loads its own copy
         torch.cuda.empty_cache()
     if "runtime" in phases:
-        if generated is None:
-            ap.error("the runtime phase holds its actor's tokens against the generate phase's: run both")
-        log(f"driver device memory before the runtime phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-            "allocated")
-        phase_runtime(generated, launches)
+        with wall("runtime"):
+            if generated is None:
+                ap.error("the runtime phase holds its actor's tokens against the generate phase's: run both")
+            log(f"driver device memory before the runtime phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                "allocated")
+            phase_runtime(generated, launches)
     if "serve" in phases:
-        if served is None:
-            ap.error("the serve phase holds its replicas' tokens against the engine phase's: run both")
-        phase_serve(served, launches)
-    log(f"wall time {time.perf_counter() - t_start:.1f} s")
+        with wall("serve"):
+            if served is None:
+                ap.error("the serve phase holds its replicas' tokens against the engine phase's: run both")
+            phase_serve(served, launches)
+    log(f"wall time {time.perf_counter() - t_start:.1f} s; by phase {walls}")
 
     if phases != list(PHASES):
         return 0

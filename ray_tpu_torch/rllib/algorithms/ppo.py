@@ -7,7 +7,7 @@ The learner runs the JAX reference's update (`ray_tpu/rllib/algorithms/ppo.py`,
 one XLA program there) eagerly on the learner's device: GAE, the SGD-epoch
 loop over minibatch permutations, the clipped-surrogate loss and the
 optimizer, op for op. The permutations are drawn apart from the update
-(`ppo_perms`), so the update given them (`update.with_perms`) can be held
+(`optim.make_minibatch_update`), so the update given them (`update.with_perms`) can be held
 to the reference's with the permutations JAX drew.
 """
 
@@ -18,8 +18,7 @@ from typing import Dict, Optional
 import torch
 
 from ..core.learner import Learner
-from ..utils.optim import apply_updates
-from ..utils.tree import tree_leaves, tree_unflatten_like
+from ..utils import optim
 from .algorithm import Algorithm
 from .algorithm_config import AlgorithmConfig
 
@@ -46,19 +45,6 @@ class PPOConfig(AlgorithmConfig):
             )
 
 
-def ppo_perms(gen: torch.Generator, N: int, num_epochs: int, num_minibatches: int,
-              mb_size: int) -> torch.Tensor:
-    """[num_epochs, num_minibatches, mb_size] int64 sample indices on the
-    generator's device: one permutation of N per epoch, truncated so uneven
-    batches still tile into equal-size minibatches (a few samples dropped
-    per epoch), as the reference's `jax.random.permutation` per epoch key."""
-    return torch.stack([
-        torch.randperm(N, generator=gen, device=gen.device)[: num_minibatches * mb_size]
-        .reshape(num_minibatches, mb_size)
-        for _ in range(num_epochs)
-    ])
-
-
 def make_ppo_update(module, opt, cfg: PPOConfig, axis_name: Optional[str] = None):
     """Builds update(state, batch, gen) -> (state, metrics), and
     `update.with_perms(state, batch, perms)`, the same update given the
@@ -75,7 +61,6 @@ def make_ppo_update(module, opt, cfg: PPOConfig, axis_name: Optional[str] = None
     gamma, lam = cfg.gamma, cfg.lambda_
     clip, vf_clip = cfg.clip_param, cfg.vf_clip_param
     vf_coeff, ent_coeff = cfg.vf_loss_coeff, cfg.entropy_coeff
-    num_epochs = cfg.num_epochs
 
     def loss_fn(params, mb):
         dist, value = module.forward(params, mb["obs"])
@@ -107,44 +92,18 @@ def make_ppo_update(module, opt, cfg: PPOConfig, axis_name: Optional[str] = None
         }
         return total, aux
 
-    def value_and_grad(params, mb):
-        """(aux, grads): the reference's `jax.value_and_grad(loss_fn,
-        has_aux=True)`; a leaf the loss does not use gets a zero gradient."""
-        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-        total, aux = loss_fn(tree_unflatten_like(params, leaves), mb)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        return {k: v.detach() for k, v in aux.items()}, tree_unflatten_like(params, grads)
+    value_and_grad = optim.value_and_grad(loss_fn)
 
-    def with_perms(state, batch, perms):
+    def step(state, mb):
+        return optim.gradient_step(opt, value_and_grad, state, mb)
+
+    def gae(state, batch):
         from ..utils.gae import compute_gae, flatten_time_major
 
-        params, opt_state = state
-        with torch.no_grad():
-            advs, returns = compute_gae(module, params, batch, gamma, lam)
-            flat = flatten_time_major(batch, advs, returns)
-        auxs = []
-        for epoch in perms:
-            for idx in epoch:
-                mb = {k: v[idx] for k, v in flat.items()}
-                aux, grads = value_and_grad(params, mb)
-                with torch.no_grad():
-                    updates, opt_state = opt.update(grads, opt_state, params)
-                    params = apply_updates(params, updates)
-                auxs.append(aux)
-        # Minibatch metrics stay on the device and are averaged once.
-        metrics = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
-        return (params, opt_state), metrics
+        advs, returns = compute_gae(module, state[0], batch, gamma, lam)
+        return flatten_time_major(batch, advs, returns)
 
-    def update(state, batch, gen):
-        T, B = batch["rewards"].shape
-        N = T * B
-        mb_size = min(cfg.minibatch_size, N)
-        num_minibatches = max(N // mb_size, 1)
-        return with_perms(state, batch, ppo_perms(gen, N, num_epochs, num_minibatches, mb_size))
-
-    update.with_perms = with_perms
-    return update
+    return optim.make_minibatch_update(step, cfg.num_epochs, cfg.minibatch_size, prepare=gae)
 
 
 class PPO(Algorithm):

@@ -24,6 +24,11 @@ class OfflineDataset:
         obs: np.ndarray,
         actions: np.ndarray,
         returns: Optional[np.ndarray] = None,
+        # reference: (obs, actions, returns) only (`ray_tpu/rllib/offline/__init__.py:22-27`);
+        # CQL reads the transition fields (`cql.py:52`), so the port carries them.
+        rewards: Optional[np.ndarray] = None,
+        next_obs: Optional[np.ndarray] = None,
+        dones: Optional[np.ndarray] = None,
     ):
         if len(obs) != len(actions):
             raise ValueError("obs and actions must align")
@@ -36,6 +41,17 @@ class OfflineDataset:
             raise ValueError(
                 f"returns ({len(self.returns)}) must align with obs ({len(self.obs)})"
             )
+        # reference: no transition fields (`offline/__init__.py:38`). Per
+        # transition: its reward, the observation after it (the reset one
+        # where it ended an episode) and whether it did; in memory only
+        # (write_json/read_json keep obs, action and return).
+        self.rewards = None if rewards is None else np.asarray(rewards, np.float32)
+        self.next_obs = None if next_obs is None else np.asarray(next_obs, np.float32)
+        self.dones = None if dones is None else np.asarray(dones, np.float32)
+        for name in ("rewards", "next_obs", "dones"):
+            arr = getattr(self, name)
+            if arr is not None and len(arr) != len(self.obs):
+                raise ValueError(f"{name} ({len(arr)}) must align with obs ({len(self.obs)})")
 
     def __len__(self) -> int:
         return len(self.obs)
@@ -98,18 +114,24 @@ def collect_dataset(
     seed: int = 0,
     gamma: float = 0.99,
     env_kwargs: Optional[dict] = None,
+    transitions: bool = False,
 ) -> OfflineDataset:
     """Roll `policy_fn(obs_batch) -> action_batch` in the native vector env
-    and record transitions (expert-demonstration collection for BC)."""
+    and record transitions (expert-demonstration collection for BC).
+    `transitions=True` also records each step's reward, next observation
+    and done (the TD learners' data: CQL)."""
+    # reference: no transitions= (`ray_tpu/rllib/offline/__init__.py:92-100`).
     env = make_env(env_name, num_envs, **(env_kwargs or {}))
     obs, _ = env.reset(seed=seed)
     all_obs, all_act, all_rew, all_done = [], [], [], []
+    all_next = []  # reference: no next observations (`offline/__init__.py:106`)
     steps = 0
     while steps < n_steps:
         actions = np.asarray(policy_fn(obs))
         all_obs.append(obs.copy())
         all_act.append(actions.copy())
         obs, rew, term, trunc, _ = env.step(actions)
+        all_next.append(np.asarray(obs, np.float32).copy())  # reference: not recorded
         all_rew.append(np.asarray(rew, np.float32))
         all_done.append((term | trunc).astype(np.float32))
         steps += len(actions)
@@ -126,7 +148,11 @@ def collect_dataset(
     def flat(xs):
         return np.concatenate(list(xs), axis=0)[:n_steps]
 
-    return OfflineDataset(flat(all_obs), flat(all_act), flat(ret))
+    if not transitions:
+        return OfflineDataset(flat(all_obs), flat(all_act), flat(ret))
+    # reference: (obs, actions, returns) only (`offline/__init__.py:129`).
+    return OfflineDataset(flat(all_obs), flat(all_act), flat(ret),
+                          rewards=flat(rew), next_obs=flat(all_next), dones=flat(done))
 
 
 class EpisodeDataset:

@@ -13,6 +13,13 @@ optax's does, in the same order:
   the learning rate;
 - `rmsprop`: optax's `scale_by_rms`: g · rsqrt(ν + eps), eps inside the
   root, ν starting at 0 (not `torch.optim.RMSprop`'s g / (√ν + eps)).
+
+`value_and_grad(loss_fn)` is `jax.value_and_grad(loss_fn, has_aux=True)`
+over such a tree, and `gradient_step` one optimizer step on its gradient:
+the step every learner's update takes. `make_minibatch_update` is the
+epoch loop of PPO, BC, MARWIL and CQL (the reference's nested `lax.scan`
+over permuted minibatches), split into the permutations, drawn from the
+learner's generator, and the update given them.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .tree import tree_leaves, tree_map
+from .tree import tree_leaves, tree_map, tree_unflatten_like
 
 
 class GradientTransformation(NamedTuple):
@@ -108,6 +115,87 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
 
 def apply_updates(params, updates):
     return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+
+
+def value_and_grad(loss_fn: Callable) -> Callable:
+    """`fn(params, *args) -> (aux, grads)` for `loss_fn(params, *args) ->
+    (loss, aux)`: the reference's `jax.value_and_grad(loss_fn,
+    has_aux=True)` (aux detached); a leaf the loss does not use gets a zero
+    gradient."""
+    def fn(params, *args):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        total, aux = loss_fn(tree_unflatten_like(params, leaves), *args)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        return {k: v.detach() for k, v in aux.items()}, tree_unflatten_like(params, grads)
+
+    return fn
+
+
+def gradient_step(opt: GradientTransformation, value_and_grad: Callable, state, *args):
+    """One step of `opt` on the gradient of `value_and_grad(params, *args)`:
+    ((params, opt_state), aux), state being (params, opt_state)."""
+    params, opt_state = state
+    aux, grads = value_and_grad(params, *args)
+    with torch.no_grad():
+        updates, opt_state = opt.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+    return (params, opt_state), aux
+
+
+def minibatch_perms(gen: torch.Generator, N: int, num_epochs: int, num_minibatches: int,
+                    mb_size: int) -> torch.Tensor:
+    """[num_epochs, num_minibatches, mb_size] int64 sample indices on the
+    generator's device: one permutation of N per epoch, truncated so uneven
+    batches still tile into equal-size minibatches (a few samples dropped
+    per epoch), as the reference's `jax.random.permutation` per epoch key."""
+    return torch.stack([
+        torch.randperm(N, generator=gen, device=gen.device)[: num_minibatches * mb_size]
+        .reshape(num_minibatches, mb_size)
+        for _ in range(num_epochs)
+    ])
+
+
+def minibatch_sgd(step: Callable, state, batch, perms):
+    """Epochs of minibatch steps over `perms` ([num_epochs, num_minibatches,
+    mb_size] sample indices): `step(state, mb) -> (state, aux)` per
+    minibatch, in order. Metrics averaged over every minibatch (the
+    reference's nested `lax.scan`, `jnp.mean` over both axes), on the
+    device, once."""
+    auxs = []
+    for epoch in perms:
+        for idx in epoch:
+            state, aux = step(state, {k: v[idx] for k, v in batch.items()})
+            auxs.append(aux)
+    return state, {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+
+
+def make_minibatch_update(step: Callable, num_epochs: int, minibatch_size: int,
+                          prepare: Callable = None) -> Callable:
+    """update(state, batch, gen) -> (state, metrics): `num_epochs` epochs of
+    `step` over minibatches of min(minibatch_size, N) samples, one
+    permutation per epoch drawn from `gen`; and `update.with_perms(state,
+    batch, perms)`, the same update given the permutations. `prepare(state,
+    batch)`, when given, turns the batch into per-sample rows first, without
+    gradients (PPO's GAE); else the batch's rows are the samples."""
+    def samples(state, batch):
+        if prepare is None:
+            return batch
+        with torch.no_grad():
+            return prepare(state, batch)
+
+    def with_perms(state, batch, perms):
+        return minibatch_sgd(step, state, samples(state, batch), perms)
+
+    def update(state, batch, gen):
+        flat = samples(state, batch)
+        N = flat["obs"].shape[0]
+        mb_size = min(minibatch_size, N)
+        perms = minibatch_perms(gen, N, num_epochs, max(N // mb_size, 1), mb_size)
+        return minibatch_sgd(step, state, flat, perms)
+
+    update.with_perms = with_perms
+    return update
 
 
 def make_optimizer(cfg, kind: str = "adam"):

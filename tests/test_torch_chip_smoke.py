@@ -276,7 +276,7 @@ def test_mpmd_phase_rehearsal_on_the_cpu():
     SIGKILLed after step 3, resumed at the step-2 commit with the unkilled
     run's losses; the session's processes gone after shutdown."""
     spec = chip_smoke.MPMDSpec(
-        pipe=("llama-7b", {**TRAINER_LLAMA, "n_layers": 4}, (4, 16)), micro=2, warm=1, timed=2,
+        pipe=("llama-7b", {**TRAINER_LLAMA, "n_layers": 4}, (4, 16)), micro=2, warm=1, timed=3, fresh=2,
         parity=("llama-7b", TRAINER_LLAMA, (2, 16)),
         kill=("gpt2-small", TRAINER_GPT, (4, 16)), kill_steps=5, kill_after=3,
         adamw=dict(lr=1e-2, weight_decay=0.1), init={"num_cpus": 6, "num_gpus": 1}, device="cpu")
@@ -306,8 +306,8 @@ def test_data_rows_are_reproducible_from_their_seeds():
 def test_step_launch_prediction():
     """One plain step's launches: gpt2-large with remat "attn" (the feed
     cell) 36 / 36 / 36 / 0, as the trainer phase; with full remat (the HF
-    cell, config_from_hf's default) the backward reruns each flash forward,
-    72 / 36 / 36 / 0; llama (RMSNorm) recomputes its norms. The plain step
+    cell at 24 layers, config_from_hf's default) the backward reruns each
+    flash forward, 48 / 24 / 24 / 0; llama (RMSNorm) recomputes its norms. The plain step
     is the MPMD prediction at one stage, one chunk, one microbatch."""
     from ray_tpu_torch.models.gpt import gpt2_large, llama_7b
     from ray_tpu_torch.train.huggingface import config_from_hf
@@ -319,7 +319,7 @@ def test_step_launch_prediction():
         "flash_fwd": 36, "flash_bwd_dq": 36, "flash_bwd_dkv": 36, "rmsnorm": 0}
     hf_cfg = config_from_hf(chip_smoke.types.SimpleNamespace(**chip_smoke.DataSpec().hf))
     assert hf_cfg.vocab_size == 50304 and hf_cfg.remat and hf_cfg.remat_policy is None
-    assert plain(hf_cfg) == {"flash_fwd": 72, "flash_bwd_dq": 36, "flash_bwd_dkv": 36, "rmsnorm": 0}
+    assert plain(hf_cfg) == {"flash_fwd": 48, "flash_bwd_dq": 24, "flash_bwd_dkv": 24, "rmsnorm": 0}
     assert plain(gpt2_large(remat=False)) == {"flash_fwd": 36, "flash_bwd_dq": 36, "flash_bwd_dkv": 36,
                                               "rmsnorm": 0}
     assert plain(llama_7b(n_layers=4, remat=True, remat_policy="attn")) == {
@@ -368,6 +368,14 @@ def test_data_phase_rehearsal_on_the_cpu():
 def test_gbdt_and_rllib_phases_are_after_data():
     assert chip_smoke.PHASES.index("gbdt") == chip_smoke.PHASES.index("data") + 1
     assert chip_smoke.PHASES.index("rllib") == chip_smoke.PHASES.index("gbdt") + 1
+
+
+def test_rllib_algos_phase_is_right_after_rllib():
+    assert chip_smoke.PHASES.index("rllib_algos") == chip_smoke.PHASES.index("rllib") + 1
+    # Its bars are the reference tests' own (tests/test_rllib_algos.py, tests/test_rllib_offline.py).
+    assert chip_smoke.RL_BARS == {"dqn": (130.0, 80), "impala": (130.0, 250), "appo": (130.0, 250),
+                                  "a2c": (120.0, 150), "bc": (150.0, 10), "marwil": (150.0, 15)}
+    assert chip_smoke.RLlibAlgosSpec().bars == chip_smoke.RL_BARS
 
 
 def test_higgs_like_rows_are_seeded_and_learnable():
@@ -446,3 +454,18 @@ def test_rllib_phase_rehearsal_on_the_cpu():
     launches = {}
     chip_smoke.phase_rllib(launches, spec)
     assert set(launches["rllib"]) == set(chip_smoke._kernels()) and not any(launches["rllib"].values())
+
+
+def test_rllib_algos_phase_rehearsal_on_the_cpu():
+    """The rllib_algos phase's control flow on the CPU at low bars (the
+    learning bars run on the card): each algorithm at its reference test's
+    settings to its bar, its update "card" vs CPU (both the CPU here), CQL
+    on transition data, IMPALA's async path and Ape-X's shards in a
+    cluster; 0 launches of each kernel."""
+    bars = {"dqn": (25.0, 25), "impala": (30.0, 40), "appo": (30.0, 40), "a2c": (25.0, 20), "bc": (60.0, 3),
+            "marwil": (60.0, 3)}
+    spec = chip_smoke.RLlibAlgosSpec(bars=bars, async_envs=4, async_iters=3, apex_iters=3, cql_iters=2,
+                                     init={"num_cpus": 4}, device="cpu")
+    launches = {}
+    chip_smoke.phase_rllib_algos(launches, spec)
+    assert set(launches["rllib_algos"]) == set(chip_smoke._kernels()) and not any(launches["rllib_algos"].values())

@@ -120,6 +120,10 @@ RUNTIME_COPY = (
     "rllib/__init__.py", "rllib/env", "rllib/connectors", "rllib/utils", "rllib/offline", "rllib/core",
     "rllib/algorithms/__init__.py", "rllib/algorithms/algorithm_config.py", "rllib/algorithms/algorithm.py",
     "rllib/algorithms/ppo.py", "rllib/algorithms/multi_agent_ppo.py",
+    # RLlib's discrete-action algorithms (ports: PORTS).
+    "rllib/algorithms/a2c.py", "rllib/algorithms/impala.py", "rllib/algorithms/appo.py",
+    "rllib/algorithms/dqn.py", "rllib/algorithms/apex_dqn.py", "rllib/algorithms/bc.py",
+    "rllib/algorithms/marwil.py", "rllib/algorithms/cql.py",
 )
 # Port-only files inside the copied directories.
 PORT_ONLY = {"core/devices.py", "core/host_names.py", "rllib/utils/tree.py"}
@@ -194,6 +198,18 @@ DIVERGES = {
     "rllib/algorithms/ppo.py": "the update eager in torch, split into permutations and the update given them "
                                "(PORTS)",
     "rllib/algorithms/multi_agent_ppo.py": "the learners and runners on config.device",
+    "rllib/offline/__init__.py": "OfflineDataset carries rewards, next_obs and dones, and collect_dataset "
+                                 "records them with transitions=True (the reference's CQL reads them, its "
+                                 "dataset has none)",
+    "rllib/algorithms/a2c.py": "the update eager in torch on the learner's device (PORTS)",
+    "rllib/algorithms/impala.py": "the V-trace update eager in torch, the reverse scan a loop over T (PORTS)",
+    "rllib/algorithms/appo.py": "the clipped surrogate on IMPALA's V-trace, eager in torch (PORTS)",
+    "rllib/algorithms/dqn.py": "QPolicyModule over torch tensors with torch.Generator epsilon-greedy; the "
+                               "minibatch scan a loop (PORTS)",
+    "rllib/algorithms/apex_dqn.py": "the TD errors for new priorities in torch on the learner's device (PORTS)",
+    "rllib/algorithms/bc.py": "the update split into permutations and the update given them (PORTS)",
+    "rllib/algorithms/marwil.py": "the loss in torch over BC's update (PORTS)",
+    "rllib/algorithms/cql.py": "the update split into permutations and the update given them (PORTS)",
 }
 # Diverging files that are ports, held by their structure, not line by line:
 # a class (its methods in the reference's order, its step()'s calls in
@@ -224,6 +240,8 @@ PORTS = {
     "rllib/env/env_runner.py": {"module": ["rllib/env/env_runner.py"]},
     "rllib/env/ma_runner.py": {"module": ["rllib/env/ma_runner.py"]},
     "rllib/algorithms/ppo.py": {"module": ["rllib/algorithms/ppo.py"]},
+    **{f"rllib/algorithms/{name}.py": {"module": [f"rllib/algorithms/{name}.py"]}
+       for name in ("a2c", "impala", "appo", "dqn", "apex_dqn", "bc", "marwil", "cql")},
 }
 
 
@@ -422,6 +440,8 @@ def test_importing_the_port_loads_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.data, ray_tpu_torch.data.streaming, ray_tpu_torch.train.huggingface\n"
         "import ray_tpu_torch.models.gbdt, ray_tpu_torch.train.gbdt_trainer, ray_tpu_torch.rllib\n"
         "import ray_tpu_torch.rllib.core, ray_tpu_torch.rllib.env.ma_runner, ray_tpu_torch.rllib.offline\n"
+        "import ray_tpu_torch.rllib.algorithms.apex_dqn, ray_tpu_torch.rllib.algorithms.cql\n"
+        "import ray_tpu_torch.rllib.algorithms.appo, ray_tpu_torch.rllib.algorithms.marwil\n"
         "new = set(sys.modules) - before\n"
         f"print(sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}))\n"
     )
@@ -443,8 +463,14 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from ray_tpu_torch.rllib.core import DiscretePolicyModule
     from ray_tpu_torch.rllib.core.rl_module import params_from_numpy
     from ray_tpu_torch.rllib.env.multi_agent import make_multi_agent
+    from ray_tpu_torch.rllib import (A2CConfig, APPOConfig, ApexDQNConfig, BCConfig, CQLConfig, DQNConfig,
+                                     IMPALAConfig, MARWILConfig)
+    from ray_tpu_torch.rllib.offline import OfflineDataset
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    demos = OfflineDataset(np.zeros((8, 4), np.float32), np.zeros(8, np.int64), np.zeros(8, np.float32),
+                           rewards=np.zeros(8, np.float32), next_obs=np.zeros((8, 4), np.float32),
+                           dones=np.zeros(8, np.float32))
     cfg = gpt.GPTConfig(vocab_size=16, n_layers=1, d_model=8, n_heads=2, d_head=4, d_mlp=16,
                         max_seq=16, dtype=torch.float32)
     params = gpt.init_params(cfg, seed=0, device="cpu")
@@ -470,6 +496,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: MultiAgentPPOConfig().environment(
             ma_env_maker=make_multi_agent(lambda n, **kw: make_env("CartPole-v1", n), 2)
         ).multi_agent(shared_policy=True).build(),
+        # The discrete-action algorithms: their learner and local runner.
+        *[lambda c=c: c.environment("CartPole-v1").env_runners(num_env_runners=0).build()
+          for c in (A2CConfig(), IMPALAConfig(), APPOConfig(), DQNConfig())],
+        lambda: ApexDQNConfig().environment("CartPole-v1").build(),
+        *[lambda c=c: c.environment("CartPole-v1").offline_data(dataset=demos).build()
+          for c in (BCConfig(), MARWILConfig(), CQLConfig())],
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

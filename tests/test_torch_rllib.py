@@ -327,7 +327,7 @@ def test_ppo_update_matches_the_references_given_its_permutations(kind):
 
 
 def test_ppo_perms_tile_each_epoch():
-    perms = ppo.ppo_perms(torch.Generator().manual_seed(0), 100, 3, 3, 32)
+    perms = optim.minibatch_perms(torch.Generator().manual_seed(0), 100, 3, 3, 32)
     assert perms.shape == (3, 3, 32) and perms.dtype == torch.int64
     for e in perms:
         flat = e.reshape(-1)
