@@ -27,9 +27,9 @@ Phases:
               of the three flash kernels timed at B=1 H=8 S=1024 D=512
   4. parity   llama-7b widths, 2 layers, f32: make_generate and
               InferenceEngine on the card vs make_generate on the CPU
-  5. train_parity  llama-7b widths, 2 layers, f32, remat "attn": loss and
+  5. train_parity  llama-7b widths, 1 layer, f32, remat "attn": loss and
               every gradient on the card vs the CPU, then the params after
-              3 AdamW steps
+              2 AdamW steps
   6. train    bench.py's step: gpt2-large, B=13 x S=1024, bf16 compute, f32
               master weights, remat "attn", AdamW(3e-4, wd 0.1, bf16 mu):
               tokens/s, step ms, MFU, peak memory, launches per step
@@ -53,7 +53,7 @@ Phases:
               compiled-DAG edges with ZeRO updates: llama-7b widths (4
               layers, B=8 x S=512, M=4, 2 stages, dp=1; the trainer phase's
               GPipe cell) on 6 new batches, each step within 2e-2 of the
-              plain step from the same params with the same AdamW, then 4
+              plain step from the same params with the same AdamW, then 2
               steps on the first two again: its first loss within 2e-3 of
               loss_fn, falling by the last step, launches per step as
               predicted (step ms, tokens/s, busy and update s per stage,
@@ -79,7 +79,7 @@ Phases:
               round trip bit for bit, its first loss within 2e-3 of
               loss_fn, its losses bit-equal to the driver's run of the
               loop's step, its checkpoint exported with HF's keys and shapes
-  6e. gbdt    the GBDT booster on the card: GradientBoostedTrees.fit on 2,000,000
+  6e. gbdt    the GBDT booster on the card: GradientBoostedTrees.fit on 1,000,000
               HIGGS-shaped rows (28 f32 features, seeded) at XGBoost's default
               params (depth 6, eta 0.3, 256 bins), 50 rounds, twice: the trees
               bit for bit equal, the train loss falling, the validation
@@ -106,6 +106,15 @@ Phases:
               re-arming and the weight puts exact); Ape-X (2 runners, 2
               replay shards: sizes, one priority per sampled index); CQL, 3
               iterations on transition data
+  6f''. rllib_algos_ii SAC, TD3 and DDPG on Pendulum-v1 and the Decision
+              Transformer on CartPole-v1 (40 scripted-expert episodes), the
+              learner and local runner on the card, to their reference
+              tests' bars within their iteration limits, from their seeds;
+              each Pendulum update's gradient steps replayed as CUDA graphs,
+              held bit for bit against the same steps eager at the first
+              update (ms a gradient step each way); one update of each of
+              the four card vs CPU (f32, the same draws); iterations, env
+              steps, sample and update ms, one update's idle share
   6g. parallel the mesh path on a one-rank NCCL world (make_mesh(), all six
               axes 1): gpt2-medium-moe (8 experts, top-2) training at full
               width through make_train_step(mesh=) (tokens/s, step ms,
@@ -154,7 +163,7 @@ import types
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 PHASES = ("device", "build", "kernels", "parity", "train_parity", "train", "trainer", "mpmd", "data",
-          "gbdt", "rllib", "rllib_algos", "parallel", "generate", "engine", "runtime", "serve")
+          "gbdt", "rllib", "rllib_algos", "rllib_algos_ii", "parallel", "generate", "engine", "runtime", "serve")
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, SXM
 H100_F32_FLOPS = 67e12     # CUDA-core f32 peak, SXM
 H100_BYTES_PER_S = 3.35e12
@@ -919,10 +928,16 @@ def _update_rel_diff(after_a: dict, after_b: dict, before: dict) -> float:
     return (num / max(den, 1e-300)) ** 0.5
 
 
+# AdamW steps card vs CPU (3 until the rllib_algos_ii phase joined the
+# script: its time limit; each CPU step ≈ 8-12 s).
+TRAIN_PARITY_STEPS = 2
+
+
 def phase_train_parity(launches: dict) -> None:
-    """llama-7b widths, 2 layers, f32, TF32 off, remat "attn": one step's
+    """llama-7b widths, 1 layer, f32, TF32 off, remat "attn": one step's
     loss and every gradient on the card (kernels) against the CPU (plain),
-    then the params after 3 AdamW steps (bench.py's hyperparameters)."""
+    then the params after TRAIN_PARITY_STEPS AdamW steps (bench.py's
+    hyperparameters)."""
     import torch
 
     from ray_tpu_torch.models.gpt import init_params, llama_7b, make_train_step
@@ -930,7 +945,9 @@ def phase_train_parity(launches: dict) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = llama_7b(n_layers=2, dtype=torch.float32, remat=True, remat_policy="attn")
+    # 2 layers until the rllib_algos_ii phase joined the script (its time
+    # limit: the CPU side's 3 steps took most of the phase's 48.9 s).
+    cfg = llama_7b(n_layers=1, dtype=torch.float32, remat=True, remat_policy="attn")
     cpu = init_params(cfg, seed=1, device="cpu")
     start = {k: v.clone() for k, v in cpu.items()}
     gpu = {k: v.to("cuda") for k, v in cpu.items()}
@@ -956,25 +973,26 @@ def phase_train_parity(launches: dict) -> None:
         rel = (gpu[k].grad.cpu() - p.grad).abs().max().item() / max(p.grad.abs().max().item(), 1e-30)
         if rel > worst:
             worst, worst_name = rel, k
-    log(f"train_parity f32 llama-7b widths L=2 B=2 S=128 remat=attn: loss gpu {m_gpu['loss'].item():.6f} "
+    log(f"train_parity f32 llama-7b widths L={cfg.n_layers} B=2 S=128 remat=attn: loss gpu {m_gpu['loss'].item():.6f} "
         f"cpu {m_cpu['loss'].item():.6f} (rel diff {loss_d:.2e}); grads: worst max|d|/max|ref| "
         f"{worst:.2e} ({worst_name}); grad_norm gpu {m_gpu['grad_norm'].item():.6f} cpu "
         f"{m_cpu['grad_norm'].item():.6f}; one CPU step {t_cpu:.1f} s; launches in the step {first}")
     if loss_d > 1e-5 or worst > 1e-4:
         raise AssertionError(f"train_parity: loss rel diff {loss_d:.2e} (tol 1e-5) or grad {worst_name} "
                              f"rel diff {worst:.2e} (tol 1e-4)")
-    for _ in range(2):
+    for _ in range(TRAIN_PARITY_STEPS - 1):
         steps["cpu"](cpu, batches["cpu"])
         steps["gpu"](gpu, batches["gpu"])
     torch.cuda.synchronize()
     launches["train_parity"] = read_launches()
     upd = _update_rel_diff(gpu, cpu, start)
     max_d = max((gpu[k].detach().cpu() - cpu[k].detach()).abs().max().item() for k in cpu)
-    log(f"train_parity after 3 AdamW steps: ||update gpu - update cpu|| / ||update cpu|| = {upd:.2e}, "
-        f"max |param gpu - param cpu| = {max_d:.2e} (lr {hyper['lr']}); launches over the 3 steps "
-        f"{launches['train_parity']}")
+    log(f"train_parity after {TRAIN_PARITY_STEPS} AdamW steps: ||update gpu - update cpu|| / ||update cpu|| = "
+        f"{upd:.2e}, max |param gpu - param cpu| = {max_d:.2e} (lr {hyper['lr']}); launches over the "
+        f"{TRAIN_PARITY_STEPS} steps {launches['train_parity']}")
     if upd > 1e-3:
-        raise AssertionError(f"train_parity: params after 3 steps differ by {upd:.2e} of the update (tol 1e-3)")
+        raise AssertionError(f"train_parity: params after {TRAIN_PARITY_STEPS} steps differ by {upd:.2e} of the "
+                             "update (tol 1e-3)")
     L = cfg.n_layers
     want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
     if any(first[k] != n for k, n in want.items()) or first["rmsnorm"] <= 0:
@@ -1539,7 +1557,9 @@ class MPMDSpec:
     micro: int = 4
     chunks: int = 2
     warm: int = 2
-    timed: int = 8
+    # 8 timed steps (the pool's 2 batches seen twice) until the
+    # rllib_algos_ii phase joined the script (its time limit).
+    timed: int = 6
     # The 1F1B runs' batches: a new batch each of the first `fresh` steps,
     # then the first `pool` batches again in turn (`_mpmd_schedule`). On new
     # batches the loss does not fall in 6 steps at lr 3e-4 (llama-7b widths:
@@ -1555,7 +1575,9 @@ class MPMDSpec:
     pool: int = 2
     parity: tuple = ("llama-7b", {"n_layers": 2, "dtype": "float32"}, (2, 128))
     parity_micro: int = 2
-    parity_steps: int = 2
+    # 2 steps (the CPU side ≈ 20 s a step) until the rllib_algos_ii phase
+    # joined the script (its time limit).
+    parity_steps: int = 1
     # gpt2-large widths at 2 layers, one a stage, for 4 steps (4 layers and 6
     # steps until the gbdt and rllib phases joined the script): the kill
     # after step 3, the resume at the step-2 commit, steps 3 and 4 again.
@@ -2371,7 +2393,9 @@ class GBDTSpec:
     blocks of `block_rows`. `device` None: the card; the CPU rehearsal
     (tests/test_torch_chip_smoke.py) passes a tiny size on "cpu"."""
 
-    rows: int = 2_000_000
+    # 2,000,000 until the rllib_algos_ii phase joined the script (its time
+    # limit: the host binning grows linearly with the rows).
+    rows: int = 1_000_000
     valid_rows: int = 500_000
     rounds: int = 50
     parity_rows: int = 200_000
@@ -2852,14 +2876,17 @@ def _ppo_config(spec: RLlibSpec, device):
             .debugging(seed=0).resources(device=device))
 
 
-def _leaf_errors(got, want) -> list:
-    """|got - want| max over each leaf, over the leaf's largest |want|."""
+def _leaf_errors(got, want, floor: float = 1e-30) -> list:
+    """|got - want| max over each leaf, over max(the leaf's largest |want|,
+    floor); `floor=None`: over 1 + the leaf's largest |want| (the CPU
+    parity tests' measure, `tests/torch_rl.py:close`)."""
     from ray_tpu_torch.rllib.utils.tree import tree_leaves
 
     out = []
     for g, w in zip(tree_leaves(got), tree_leaves(want)):
         g, w = g.detach().double().cpu(), w.detach().double().cpu()
-        out.append(float((g - w).abs().max() / max(float(w.abs().max()), 1e-30)))
+        scale = 1.0 + float(w.abs().max()) if floor is None else max(float(w.abs().max()), floor)
+        out.append(float((g - w).abs().max() / scale))
     return out
 
 
@@ -3419,6 +3446,286 @@ def phase_rllib_algos(launches: dict, spec: RLlibAlgosSpec | None = None) -> Non
     log(f"rllib_algos launches {counts}; phase wall {time.perf_counter() - t_phase:.1f} s")
     if any(counts.get(k, 0) for k in _kernels()):
         raise AssertionError(f"rllib_algos: an attention or RMSNorm kernel was launched: {counts}")
+
+
+# ---------------------------------------------------------- rllib_algos_ii
+# name -> (mean reward bar, iteration limit): the reference tests' own
+# (`tests/test_rllib_algos.py:76-89,174-190,210-226`, `tests/test_rllib_dt.py:44-67`).
+RL_BARS_II = {"sac": (-350.0, 200), "td3": (-350.0, 200), "ddpg": (-400.0, 200), "dt": (150.0, 8)}
+# The Pendulum tests' settings (`tests/test_rllib_algos.py:80-86,178-184,214-220`).
+PENDULUM_TRAINING = dict(train_batch_size=256, learning_starts=512, num_grad_steps=256, minibatch_size=128,
+                         model={"hidden": (64, 64)})
+PENDULUM_LR = {"sac": 3e-4, "td3": 1e-3, "ddpg": 1e-3}
+# The card-vs-CPU update of SAC, TD3 and DDPG: the first 32 minibatches of
+# the last iteration's 256 (each CPU step ≈ 15-30 ms on the card's host).
+CARD_VS_CPU_STEPS = 32
+
+
+@dataclasses.dataclass
+class RLlibAlgosIISpec:
+    """What the rllib_algos_ii phase runs. `bars`: each algorithm's learning
+    bar and iteration limit at the reference test's settings and seed;
+    `dt_episodes`: DT's scripted-expert episodes (`collect_episodes(...,
+    seed=3)`). `device` None: the card; the CPU rehearsal
+    (tests/test_torch_chip_smoke.py) passes low bars on "cpu", and
+    `training` there shrinks the Pendulum updates (the card runs the tests'
+    settings as they are)."""
+
+    bars: dict = dataclasses.field(default_factory=lambda: dict(RL_BARS_II))
+    dt_episodes: int = 40
+    training: dict = dataclasses.field(default_factory=dict)
+    device: str | None = None
+
+
+def _rl_algo_ii_configs(device, training: dict) -> dict:
+    """name -> zero-arg builder of the algorithm at its reference test's
+    settings and seed, its learner and local runner on `device`."""
+    from ray_tpu_torch.rllib import DDPGConfig, DTConfig, SACConfig, TD3Config
+    from ray_tpu_torch.rllib.offline import collect_episodes
+
+    def pendulum(config, name):
+        return lambda: (config.environment("Pendulum-v1")
+                        .env_runners(num_env_runners=0, num_envs_per_env_runner=8)
+                        .training(**{**PENDULUM_TRAINING, "lr": PENDULUM_LR[name], **training})
+                        .debugging(seed=0).resources(device=device).build())
+
+    def dt(n_episodes: int):
+        demos = collect_episodes("CartPole-v1", _cartpole_expert, n_episodes=n_episodes, seed=3)
+        return (DTConfig().environment("CartPole-v1")
+                .training(lr=1e-3, context_length=20, embed_dim=64, num_layers=2, num_heads=2,
+                          train_batch_size=256, minibatch_size=64, target_return=190.0, max_ep_len=220)
+                .offline_data(demos).resources(device=device).build())
+
+    return {"sac": pendulum(SACConfig(), "sac"), "td3": pendulum(TD3Config(), "td3"),
+            "ddpg": pendulum(DDPGConfig(), "ddpg"), "dt": dt}
+
+
+def _graph_against_eager(update, state, batch, draws) -> dict:
+    """From one state, the update replaying its CUDA graphs and the same
+    steps eagerly (`optim.scan_steps` of `update.step`) on the card: ms a
+    gradient step each way, and whether params, optimizer state and metrics
+    are equal bit for bit."""
+    import torch
+
+    from ray_tpu_torch.rllib.utils import optim
+    from ray_tpu_torch.rllib.utils.tree import tree_leaves
+
+    k = batch["obs"].shape[0]
+    out, ms = {}, {}
+    for how in ("graph", "eager", "graph"):  # the graph's ms: the second, warm call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if how == "graph":
+            out[how] = update.with_draws(state, batch, draws)
+        else:
+            out[how] = optim.scan_steps(update.step, state, *update.scan_inputs(batch, draws))
+        torch.cuda.synchronize()
+        ms[how] = (time.perf_counter() - t0) * 1e3 / k
+    (gs, gm), (es, em) = out["graph"], out["eager"]
+    equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(gs), tree_leaves(es))) and \
+        all(torch.equal(gm[name], em[name]) for name in em)
+    return {"graph_ms": ms["graph"], "eager_ms": ms["eager"], "equal": equal, "steps": k}
+
+
+def phase_rllib_algos_ii(launches: dict, spec: RLlibAlgosIISpec | None = None) -> None:
+    """SAC, TD3, DDPG and the Decision Transformer on the card through their
+    entry points: each to its reference test's learning bar (settings, seed
+    and iteration limit the tests'), the learner and the local runner on
+    the card. At the first update of each Pendulum run, before its bar, the
+    update replaying its CUDA graphs against the same gradient steps eager
+    on the card (bit for bit; ms a gradient step each way); after the bar,
+    one update card vs CPU (f32, TF32 off) from the learner's last state,
+    given the same draws (DT: permutations), step by step
+    (`_update_card_vs_cpu`). Records iterations and env
+    steps to each bar, sample and update ms (p50), one profiled update's
+    device idle share, and the phase wall."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rllib.utils.tree import to_device
+
+    spec = spec or RLlibAlgosIISpec()
+    on_card = spec.device is None
+    device = "cuda" if on_card else spec.device
+    t_phase = time.perf_counter()
+    counts: dict = {}
+    errors: dict = {}
+    graphs: dict = {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        builders = _rl_algo_ii_configs(spec.device, spec.training)
+        missed = []
+        for name, (bar, max_iters) in spec.bars.items():
+            offline = name == "dt"
+            t_build = time.perf_counter()
+            algo = builders[name](spec.dt_episodes) if offline else builders[name]()
+            build_s = time.perf_counter() - t_build
+            tap = _LearnerTap(algo)
+            learner = algo.learner_group.local_learner
+            best, curve, reached, iter_s = float("-inf"), [], None, []
+            t0 = time.perf_counter()
+            with counted(counts):
+                for _ in range(max_iters):
+                    t_it = time.perf_counter()
+                    r = algo.train()
+                    iter_s.append(time.perf_counter() - t_it)
+                    if not offline and name not in graphs and tap.batch is not None and on_card:
+                        # The first update: its graph against its eager steps, before any bar.
+                        draws = _draws(name, tap.batch, device)
+                        graphs[name] = _graph_against_eager(learner._update, learner.state,
+                                                            to_device(tap.batch, device), draws)
+                        g = graphs[name]
+                        log(f"rllib_algos_ii {name} first update (iteration {r['training_iteration']}, {g['steps']} "
+                            f"gradient steps): graphed {g['graph_ms']:.4f} ms a step, eager {g['eager_ms']:.4f} ms "
+                            f"a step on the card, {g['eager_ms'] / g['graph_ms']:.2f}x; replay against eager "
+                            f"{'bit for bit' if g['equal'] else 'NOT equal'}; that iteration sample "
+                            f"{tap.sample_s[-1] * 1e3:.1f} ms, update {tap.update_s[-1] * 1e3:.1f} ms "
+                            f"(the capture included)")
+                    m = r["evaluation"]["episode_reward_mean"] if offline else r["episode_reward_mean"]
+                    curve.append(round(m, 1))
+                    if np.isfinite(m):
+                        best = max(best, m)
+                    if best >= bar:
+                        reached = (r["training_iteration"], r["timesteps_total"])
+                        break
+            learn_s = time.perf_counter() - t0
+            busy = None
+            if on_card and name == "sac":  # the largest graph; its profile stands for the three
+                busy = _profile(f"rllib_algos_ii {name} update (one iteration)", lambda: tap._update(tap.batch))
+            env = "CartPole-v1" if offline else "Pendulum-v1"
+            log(f"rllib_algos_ii {name} {env} on {device}: mean reward by iteration {curve}; "
+                + (f"reached {bar} at iteration {reached[0]}, {reached[1]} env steps" if reached else
+                   f"did NOT reach {bar} within {max_iters} iterations (best {best:.1f})")
+                + f"; {learn_s:.1f} s (build {build_s:.1f} s); per iteration {_LearnerTap.p50_ms(iter_s):.1f} ms, "
+                + ("" if offline else f"sample {_LearnerTap.p50_ms(tap.sample_s):.1f} ms, ")
+                + f"update {_LearnerTap.p50_ms(tap.update_s):.1f} ms (p50 of {len(tap.update_s)})"
+                + (f"; device events in one update {busy}" if busy is not None else ""))
+            if reached is None:
+                missed.append(f"{name} best {best:.1f} < {bar} in {max_iters}")
+            # One update card vs CPU from the learner's last state, given the same draws.
+            t_check = time.perf_counter()
+            with counted(counts):
+                errors[name] = _update_card_vs_cpu(name, algo, learner, tap.batch, device)
+            e = errors[name]
+            log(f"rllib_algos_ii {name} one update card vs CPU ({e['steps']} gradient steps from the learner's last "
+                f"state, f32, TF32 off, the same draws or permutations), each step on the card from the CPU's state "
+                f"before it: params worst {e['params']:.3e} of 1 + the tensor's largest entry ({e['leaf']}, step "
+                f"{e['step']}; of the largest entry alone {e['relative']:.3e}, {e['relative_leaf']}), metrics "
+                f"{e['metrics']:.3e}; the {e['steps']} steps run through on each device: params {e['through']:.3e} "
+                f"of the largest entry ({e['through_leaf']}); {time.perf_counter() - t_check:.1f} s")
+            algo.stop()
+        if missed:
+            raise AssertionError(f"rllib_algos_ii: learning bars missed: {missed}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    log("rllib_algos_ii one update card vs CPU, step by step (f32, TF32 off, the same draws or permutations; "
+        "params: worst |d| / (1 + the tensor's largest entry), metrics: worst |d| / max(|cpu|, 1)): "
+        + ", ".join(f"{k} {e['params']:.3e} / {e['metrics']:.3e}" for k, e in errors.items()) + f" (tol {RL_TOL})")
+    bad = {k: (e["params"], e["metrics"]) for k, e in errors.items() if max(e["params"], e["metrics"]) > RL_TOL}
+    if bad:
+        raise AssertionError(f"rllib_algos_ii card vs CPU above {RL_TOL}: {bad}")
+    unequal = [k for k, g in graphs.items() if not g["equal"]]
+    if on_card and (unequal or set(graphs) != {k for k in spec.bars if k != "dt"}):
+        raise AssertionError(f"rllib_algos_ii: graph replay against eager not bit-equal for {unequal} "
+                             f"(checked {sorted(graphs)})")
+    launches["rllib_algos_ii"] = counts
+    log(f"rllib_algos_ii launches {counts}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    if any(counts.get(k, 0) for k in _kernels()):
+        raise AssertionError(f"rllib_algos_ii: an attention or RMSNorm kernel was launched: {counts}")
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """The path of each leaf, in `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree) for n in _leaf_names(t, f"{prefix}/{i}")]
+    return [prefix or "/"]
+
+
+def _update_card_vs_cpu(name: str, algo, learner, batch, device) -> dict:
+    """One update of the learner's (its gradient steps on `batch`, from its
+    last state, given draws or permutations from a CPU generator seeded 1;
+    SAC, TD3 and DDPG on the batch's first CARD_VS_CPU_STEPS minibatches)
+    card vs CPU, step by step: step i on the card starts from the CPU's
+    state after step i - 1, and its params and metrics are held to the
+    CPU's step i, each tensor within tol·(1 + its largest |entry|) (the CPU
+    parity tests' measure) and each metric within tol·max(|cpu|, 1). A
+    chain of Adam steps carries round-off forward and, at a trained state,
+    grows it (a ReLU that turns, a tanh at its bound), so each step is
+    compared from one state; the k steps run through on each device are
+    compared too, and recorded. Returns the gated worst ("params", its
+    leaf and step), the worst of |d| / the tensor's largest |entry|
+    ("relative"), the worst metric, and the run-through's."""
+    import torch
+
+    from ray_tpu_torch.rllib.utils import optim
+    from ray_tpu_torch.rllib.utils.tree import to_device, to_numpy, tree_map
+
+    update = learner._update
+    state = to_device(to_numpy(learner.state), "cpu")
+    if name == "dt":
+        cfg = algo.config
+        n_mb = cfg.train_batch_size // cfg.minibatch_size
+        perms = optim.minibatch_perms(torch.Generator().manual_seed(1), cfg.train_batch_size, cfg.num_epochs, n_mb,
+                                      cfg.minibatch_size)
+        data = {dev: to_device(batch, dev) for dev in (device, "cpu")}
+
+        def step(st, i, dev):
+            e, j = divmod(i, n_mb)
+            return update.with_perms(st, data[dev], perms[e:e + 1, j:j + 1].to(dev))
+
+        def through(st, dev):
+            return update.with_perms(st, data[dev], perms.to(dev))
+
+        steps = cfg.num_epochs * n_mb
+    else:
+        batch = {k: v[:CARD_VS_CPU_STEPS] for k, v in batch.items()}
+        draws = _draws(name, batch, "cpu")
+        scan = {dev: update.scan_inputs(to_device(batch, dev), to_device(draws, dev)) for dev in (device, "cpu")}
+        variants = scan["cpu"][1]
+
+        def step(st, i, dev):
+            return update.program(st, tree_map(lambda x: x[i:i + 1], scan[dev][0]), [variants[i]])
+
+        def through(st, dev):
+            return update.program(st, *scan[dev])
+
+        steps = len(variants)
+    names = _leaf_names(state[0])
+    worst = {"params": 0.0, "leaf": "", "step": 0, "metrics": 0.0, "relative": 0.0, "relative_leaf": ""}
+    for i in range(steps):
+        (p_dev, _), m_dev = step(to_device(state, device), i, device)
+        p_dev = to_device(p_dev, "cpu")
+        m_dev = dict(zip(m_dev, torch.stack(list(m_dev.values())).cpu()))
+        state, m_cpu = step(state, i, "cpu")
+        errs, rel = _leaf_errors(p_dev, state[0], floor=None), _leaf_errors(p_dev, state[0])
+        j, r = max(range(len(errs)), key=errs.__getitem__), max(range(len(rel)), key=rel.__getitem__)
+        if errs[j] > worst["params"]:
+            worst.update(params=errs[j], leaf=names[j], step=i)
+        if rel[r] > worst["relative"]:
+            worst.update(relative=rel[r], relative_leaf=names[r])
+        worst["metrics"] = max(worst["metrics"], *(abs(float(m_dev[k]) - float(m_cpu[k])) /
+                                                   max(abs(float(m_cpu[k])), 1.0) for k in m_cpu))
+    (p_through, _), _ = through(to_device(to_numpy(learner.state), device), device)
+    errs = _leaf_errors(p_through, state[0])
+    j = max(range(len(errs)), key=errs.__getitem__)
+    return {**worst, "steps": steps, "through": errs[j], "through_leaf": names[j]}
+
+
+def _draws(name: str, batch, device):
+    """The update's normal draws for `batch` ([k, mb, act_dim] each) from a
+    CPU generator seeded 1, on `device`: SAC's two, TD3's and DDPG's one."""
+    import torch
+
+    gen = torch.Generator().manual_seed(1)
+    shape = batch["actions"].shape
+    if name == "sac":
+        return {n: torch.randn(shape, generator=gen).to(device) for n in ("next", "actor")}
+    return torch.randn(shape, generator=gen).to(device)
 
 
 
@@ -4588,6 +4895,9 @@ def main(argv=None) -> int:
     if "rllib_algos" in phases:
         with wall("rllib_algos"):
             phase_rllib_algos(launches)
+    if "rllib_algos_ii" in phases:
+        with wall("rllib_algos_ii"):
+            phase_rllib_algos_ii(launches)
     if "parallel" in phases:
         with wall("parallel"):
             phase_parallel(launches)

@@ -12,10 +12,10 @@ the redesign of RLlib's new API stack: `rllib/core/learner/learner.py:95`,
   for op the reference's jitted program.
 
 The port has PPO and multi-agent PPO with the env API, the runners,
-connectors, offline data and replay buffers, and the discrete-action
-algorithms (IMPALA, DQN, APPO, BC, MARWIL, A2C, Ape-X DQN, CQL); SAC, TD3,
-DDPG, DT and DreamerV3 (slice 4b-ii) and the podracer planes (slice 4c)
-are not ported yet (ROADMAP queue 1).
+connectors, offline data and replay buffers, the discrete-action
+algorithms (IMPALA, DQN, APPO, BC, MARWIL, A2C, Ape-X DQN, CQL), and SAC,
+TD3, DDPG and the Decision Transformer (DT); DreamerV3 and the podracer
+planes are not ported yet (ROADMAP queue 1).
 """
 
 from .algorithms.algorithm import Algorithm
@@ -23,17 +23,19 @@ from .algorithms.algorithm_config import AlgorithmConfig
 from .algorithms.ppo import PPO, PPOConfig
 from .algorithms.impala import IMPALA, IMPALAConfig
 from .algorithms.dqn import DQN, DQNConfig
-# reference: SAC (`ray_tpu/rllib/__init__.py:22`) is not ported yet (slice 4b-ii).
+from .algorithms.sac import SAC, SACConfig
 from .algorithms.appo import APPO, APPOConfig
 from .algorithms.bc import BC, BCConfig
 from .algorithms.marwil import MARWIL, MARWILConfig
-# reference: TD3 and DDPG (`:26-27`) are not ported yet (slice 4b-ii).
+from .algorithms.td3 import TD3, TD3Config
+from .algorithms.ddpg import DDPG, DDPGConfig
 from .algorithms.a2c import A2C, A2CConfig
 from .algorithms.apex_dqn import ApexDQN, ApexDQNConfig
 from .algorithms.cql import CQL, CQLConfig
-# reference: DT (`:31`) is not ported yet (slice 4b-ii).
+from .algorithms.dt import DT, DTConfig
 from .algorithms.multi_agent_ppo import MultiAgentPPO, MultiAgentPPOConfig
-# reference: DreamerV3 (`:33`, slice 4b-ii) and `from . import podracer` (`:35`, slice 4c).
+# reference: DreamerV3 (`ray_tpu/rllib/__init__.py:33`) and `from . import podracer` (`:35`) are
+# not ported yet.
 from . import connectors
 from . import offline
 from .env import register_env, make_env
@@ -50,26 +52,32 @@ __all__ = [
     "IMPALAConfig",
     "DQN",
     "DQNConfig",
-    # reference: "SAC", "SACConfig" (`ray_tpu/rllib/__init__.py:50-51`), slice 4b-ii.
+    "SAC",
+    "SACConfig",
     "APPO",
     "APPOConfig",
     "BC",
     "BCConfig",
     "MARWIL",
     "MARWILConfig",
-    # reference: "TD3", "TD3Config", "DDPG", "DDPGConfig" (`:58-61`), slice 4b-ii.
+    "TD3",
+    "TD3Config",
+    "DDPG",
+    "DDPGConfig",
     "A2C",
     "A2CConfig",
     "ApexDQN",
     "ApexDQNConfig",
     "CQL",
     "CQLConfig",
-    # reference: "DT", "DTConfig", "DreamerV3", "DreamerV3Config" (`:68-69`, `:71-72`), slice 4b-ii.
+    "DT",
+    "DTConfig",
     "MultiAgentPPO",
+    # reference: "DreamerV3", "DreamerV3Config" (`:71-72`) are not ported yet.
     "MultiAgentPPOConfig",
     "connectors",
     "offline",
-    # reference: "podracer" (`:75`), slice 4c.
+    # reference: "podracer" (`:75`) is not ported yet.
     "register_env",
     "make_env",
     "EnvRunner",

@@ -4,7 +4,8 @@ Supervised policy learning from demonstrations: maximize log π(a|s) over an
 `OfflineDataset`. No environment interaction during training; the env is
 only used for evaluation. The JAX reference (`ray_tpu/rllib/algorithms/bc.py`)
 runs the minibatch-epoch loop as one jitted XLA program per iteration; the
-port runs it eagerly on the learner's device, split as PPO's is: the
+port runs it on the learner's device (each minibatch step one CUDA graph
+on the card), split as PPO's is: the
 permutations drawn from the learner's generator, one per epoch, and the
 update given them (`update.with_perms`).
 """

@@ -10,7 +10,8 @@ lets it IMPROVE on the behavior policy where BC can only imitate it.
 
 The JAX reference (`ray_tpu/rllib/algorithms/cql.py`) jits the epoch loop,
 minibatching and optimizer into one program per iteration; the port runs
-them eagerly on the learner's device, split as BC's: permutations from the
+them on the learner's device (each minibatch step one CUDA graph on the
+card), split as BC's: permutations from the
 learner's generator, and the update given them (`update.with_perms`).
 """
 

@@ -1,9 +1,10 @@
 """DQN (reference: `rllib/algorithms/dqn`).
 
 Host-side numpy replay buffer feeding a double-Q update with Polyak target
-sync, eager on the learner's device (the JAX reference,
+sync on the learner's device (the JAX reference,
 `ray_tpu/rllib/algorithms/dqn.py`, scans the minibatches in one XLA
-program; the port loops over them in order). Epsilon-greedy exploration
+program; the port loops over them in order, each minibatch step one CUDA
+graph on the card: `optim.step_program`). Epsilon-greedy exploration
 rides the params tree (`eps` leaf, a 0-d tensor) so the stock EnvRunner
 sampling step needs no special case.
 """
@@ -19,7 +20,7 @@ from ..core.learner import Learner
 from ..core.rl_module import QModule, RLModule
 from ..env.spaces import Discrete
 from ..utils import optim
-from ..utils.tree import tree_map
+from ..utils.tree import tree_leaves, tree_map, tree_unflatten_like
 from .algorithm import Algorithm
 from .algorithm_config import AlgorithmConfig
 
@@ -103,8 +104,10 @@ def taken(q: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
 
 
 def polyak(target, online, tau: float):
-    """(1 - τ)·target + τ·online, leaf by leaf."""
-    return tree_map(lambda t, o: (1 - tau) * t + tau * o, target, online)
+    """(1 - τ)·target + τ·online, each op over every leaf at once
+    (`torch._foreach_*`, the same arithmetic as leaf by leaf)."""
+    t, o = tree_leaves(target), tree_leaves(online)
+    return tree_unflatten_like(target, torch._foreach_add(torch._foreach_mul(t, 1 - tau), torch._foreach_mul(o, tau)))
 
 
 def target_net_step(opt, value_and_grad, tau: float):
@@ -143,15 +146,13 @@ def make_dqn_update(module: QPolicyModule, opt, cfg: DQNConfig):
         return loss, {"td_loss": loss, "q_mean": q_taken.mean()}
 
     step = target_net_step(opt, optim.value_and_grad(loss_fn), tau)
+    # The reference's lax.scan over the [k, mb] stacked minibatches, in
+    # order; on the card each minibatch step one CUDA graph.
+    program = optim.step_program(lambda st, mb, _: step(st, mb))
 
     def update(state, batches, gen):
         del gen
-        auxs = []
-        # The reference's lax.scan over the [k, mb] stacked minibatches, in order.
-        for i in range(batches["obs"].shape[0]):
-            state, aux = step(state, {k: v[i] for k, v in batches.items()})
-            auxs.append(aux)
-        return state, {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+        return program(state, batches, [None] * batches["obs"].shape[0])
 
     return update
 

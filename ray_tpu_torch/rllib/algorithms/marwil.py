@@ -3,8 +3,8 @@
 Reference analog: `rllib/algorithms/marwil/marwil.py`. Supervised policy
 learning weighted by exponentiated advantages: the value head regresses
 Monte-Carlo returns; the policy maximizes `exp(beta * A) * log pi(a|s)` with
-A = R - V(s). `beta = 0` degenerates to BC. Same eager minibatch-epoch
-learner as BC/PPO (the JAX reference, `ray_tpu/rllib/algorithms/marwil.py`,
+A = R - V(s). `beta = 0` degenerates to BC. Same minibatch-epoch learner
+as BC/PPO (the JAX reference, `ray_tpu/rllib/algorithms/marwil.py`,
 jits it).
 """
 

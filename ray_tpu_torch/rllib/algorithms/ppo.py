@@ -4,9 +4,9 @@ BASELINE config #1 is PPO CartPole-v1 → reward 150 within 100k env steps
 (`rllib/tuned_examples/ppo/cartpole-ppo.yaml:4-6`).
 
 The learner runs the JAX reference's update (`ray_tpu/rllib/algorithms/ppo.py`,
-one XLA program there) eagerly on the learner's device: GAE, the SGD-epoch
-loop over minibatch permutations, the clipped-surrogate loss and the
-optimizer, op for op. The permutations are drawn apart from the update
+one XLA program there) on the learner's device: GAE, the SGD-epoch loop
+over minibatch permutations (each minibatch step one CUDA graph on the
+card), the clipped-surrogate loss and the optimizer, op for op. The permutations are drawn apart from the update
 (`optim.make_minibatch_update`), so the update given them (`update.with_perms`) can be held
 to the reference's with the permutations JAX drew.
 """

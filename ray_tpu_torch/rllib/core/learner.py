@@ -3,8 +3,9 @@
 
 The JAX reference (`ray_tpu/rllib/core/learner.py`) jits the whole update
 — advantage estimation, epoch loop, minibatching, optimizer — into one XLA
-program. The port runs the same update eagerly on the learner's device
-(None: the card): params and optimizer state live there, `update` converts
+program. The port runs the same update on the learner's device (None: the
+card), op for op, each gradient step of an update one CUDA graph on the
+card where the algorithm's update uses `optim.step_program`: params and optimizer state live there, `update` converts
 the numpy batch once, runs the algorithm's update and waits for the device
 once, for its metrics. The update's randomness (minibatch permutations)
 comes from the learner's `torch.Generator` on that device.

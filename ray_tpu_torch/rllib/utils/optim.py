@@ -17,14 +17,17 @@ optax's does, in the same order:
 `value_and_grad(loss_fn)` is `jax.value_and_grad(loss_fn, has_aux=True)`
 over such a tree, and `gradient_step` one optimizer step on its gradient:
 the step every learner's update takes. `make_minibatch_update` is the
-epoch loop of PPO, BC, MARWIL and CQL (the reference's nested `lax.scan`
-over permuted minibatches), split into the permutations, drawn from the
-learner's generator, and the update given them.
+epoch loop of PPO, BC, MARWIL, CQL and DT (the reference's nested
+`lax.scan` over permuted minibatches), split into the permutations, drawn
+from the learner's generator, and the update given them. `step_program` is
+the scan of those minibatch steps and of DQN's, SAC's, TD3's and DDPG's
+gradient steps: on the card each step is one CUDA graph (`GraphedSteps`),
+replayed once a minibatch.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -68,6 +71,9 @@ def _scale(step_size: float) -> Callable:
 
 
 def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> GradientTransformation:
+    """optax's adam, each op over every leaf at once (`torch._foreach_*`:
+    one launch for a list of tensors on the card; the same arithmetic, op
+    for op, as a loop over the leaves)."""
     def init(params):
         return ScaleByAdamState(
             count=torch.zeros((), dtype=torch.int32, device=_device(params)),
@@ -76,13 +82,19 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Gr
         )
 
     def update(updates, state, params=None):
-        mu = tree_map(lambda g, t: (1 - b1) * g + b1 * t, updates, state.mu)
-        nu = tree_map(lambda g, t: (1 - b2) * (g ** 2) + b2 * t, updates, state.nu)
+        g, m, v = tree_leaves(updates), tree_leaves(state.mu), tree_leaves(state.nu)
+        # (1 - b1)·g + b1·mu and (1 - b2)·g² + b2·nu
+        mu = torch._foreach_add(torch._foreach_mul(g, 1 - b1), torch._foreach_mul(m, b1))
+        nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2), torch._foreach_mul(v, b2))
         count = state.count + 1
-        bc1 = 1 - torch.tensor(b1, dtype=torch.float32, device=count.device) ** count
-        bc2 = 1 - torch.tensor(b2, dtype=torch.float32, device=count.device) ** count
-        out = tree_map(lambda m, v: (m / bc1) / (torch.sqrt(v / bc2) + eps), mu, nu)
-        return _scale(-lr)(out), ScaleByAdamState(count=count, mu=mu, nu=nu)
+        # torch.full, not torch.tensor: a fill kernel, so a CUDA graph can capture it.
+        bc1 = 1 - torch.full((), b1, dtype=torch.float32, device=count.device) ** count
+        bc2 = 1 - torch.full((), b2, dtype=torch.float32, device=count.device) ** count
+        # -lr · (mu / bc1) / (sqrt(nu / bc2) + eps)
+        denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), eps)
+        out = torch._foreach_mul(torch._foreach_div(torch._foreach_div(mu, bc1), denom), -lr)
+        return tree_unflatten_like(updates, out), ScaleByAdamState(
+            count=count, mu=tree_unflatten_like(updates, mu), nu=tree_unflatten_like(updates, nu))
 
     return GradientTransformation(init, update)
 
@@ -114,7 +126,9 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
 
 
 def apply_updates(params, updates):
-    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+    leaves = tree_leaves(params)
+    summed = torch._foreach_add(leaves, tree_leaves(updates))
+    return tree_unflatten_like(params, [s.to(p.dtype) for p, s in zip(leaves, summed)])
 
 
 def value_and_grad(loss_fn: Callable) -> Callable:
@@ -143,6 +157,12 @@ def gradient_step(opt: GradientTransformation, value_and_grad: Callable, state, 
     return (params, opt_state), aux
 
 
+def _mean_aux(auxs: list) -> dict:
+    """Each metric averaged over the steps, on the device (the reference's
+    `jax.tree.map(lambda x: x.mean(), auxs)`)."""
+    return {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+
+
 def minibatch_perms(gen: torch.Generator, N: int, num_epochs: int, num_minibatches: int,
                     mb_size: int) -> torch.Tensor:
     """[num_epochs, num_minibatches, mb_size] int64 sample indices on the
@@ -156,18 +176,15 @@ def minibatch_perms(gen: torch.Generator, N: int, num_epochs: int, num_minibatch
     ])
 
 
-def minibatch_sgd(step: Callable, state, batch, perms):
+def minibatch_sgd(program: Callable, state, batch, perms):
     """Epochs of minibatch steps over `perms` ([num_epochs, num_minibatches,
-    mb_size] sample indices): `step(state, mb) -> (state, aux)` per
-    minibatch, in order. Metrics averaged over every minibatch (the
-    reference's nested `lax.scan`, `jnp.mean` over both axes), on the
-    device, once."""
-    auxs = []
-    for epoch in perms:
-        for idx in epoch:
-            state, aux = step(state, {k: v[idx] for k, v in batch.items()})
-            auxs.append(aux)
-    return state, {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+    mb_size] sample indices), in order: the minibatches gathered at once
+    ([num_epochs · num_minibatches, mb_size, ...]) and run by `program` (a
+    `step_program` of the minibatch step). Metrics averaged over every
+    minibatch (the reference's nested `lax.scan`, `jnp.mean` over both
+    axes), on the device, once."""
+    idx = perms.reshape(-1, perms.shape[-1])
+    return program(state, {k: v[idx] for k, v in batch.items()}, [None] * idx.shape[0])
 
 
 def make_minibatch_update(step: Callable, num_epochs: int, minibatch_size: int,
@@ -177,7 +194,10 @@ def make_minibatch_update(step: Callable, num_epochs: int, minibatch_size: int,
     permutation per epoch drawn from `gen`; and `update.with_perms(state,
     batch, perms)`, the same update given the permutations. `prepare(state,
     batch)`, when given, turns the batch into per-sample rows first, without
-    gradients (PPO's GAE); else the batch's rows are the samples."""
+    gradients (PPO's GAE); else the batch's rows are the samples. On the
+    card each minibatch step replays one CUDA graph (`step_program`)."""
+    program = step_program(lambda st, mb, _: step(st, mb))
+
     def samples(state, batch):
         if prepare is None:
             return batch
@@ -185,17 +205,108 @@ def make_minibatch_update(step: Callable, num_epochs: int, minibatch_size: int,
             return prepare(state, batch)
 
     def with_perms(state, batch, perms):
-        return minibatch_sgd(step, state, samples(state, batch), perms)
+        return minibatch_sgd(program, state, samples(state, batch), perms)
 
     def update(state, batch, gen):
         flat = samples(state, batch)
         N = flat["obs"].shape[0]
         mb_size = min(minibatch_size, N)
         perms = minibatch_perms(gen, N, num_epochs, max(N // mb_size, 1), mb_size)
-        return minibatch_sgd(step, state, flat, perms)
+        return minibatch_sgd(program, state, flat, perms)
 
     update.with_perms = with_perms
     return update
+
+
+class GraphedSteps:
+    """The gradient steps of one update, each variant of the step captured
+    once as a CUDA graph over one set of static tensors: the state, and the
+    inputs of one step (its minibatch and its draws). A replay reads them
+    and writes the new state back into them, so each replay advances the
+    state it holds, as one iteration of the reference's `lax.scan` carries
+    it (`ray_tpu/rllib/algorithms/sac.py:207-208`, `td3.py:185-186`). A
+    graph holds no RNG: the draws are inputs. A capture or a replay that
+    fails raises; nothing runs eagerly in its place."""
+
+    def __init__(self, step: Callable, state, inputs):
+        self._step = step
+        self.state = tree_map(lambda t: t.detach().clone(), state)
+        self.inputs = tree_map(lambda t: t.detach().clone(), inputs)
+        self._graphs: dict = {}
+
+    def _capture(self, variant):
+        device = tree_leaves(self.state)[0].device
+        side = torch.cuda.Stream(device=device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            # Lazy set-up (cuBLAS handles and workspaces, autograd) outside the
+            # capture. The step is a function of its arguments: the state is
+            # left as it was.
+            for _ in range(3):
+                self._step(self.state, self.inputs, variant)
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            new, aux = self._step(self.state, self.inputs, variant)
+            moved = [(static, out) for static, out in zip(tree_leaves(self.state), tree_leaves(new))
+                     if out is not static]
+            torch._foreach_copy_([static for static, _ in moved], [out for _, out in moved])
+            names = list(aux)
+            vec = torch.stack([aux[k] for k in names])
+        self._graphs[variant] = (graph, names, vec)
+
+    def run(self, state, inputs, variants: Sequence):
+        """Step i on row i of `inputs` (a tree of [k, ...] tensors shaped
+        as the captured inputs' rows), in `variants[i]`'s graph: the state
+        after the k steps (new tensors) and each step's aux."""
+        torch._foreach_copy_(tree_leaves(self.state), tree_leaves(state))
+        statics, rows = tree_leaves(self.inputs), tree_leaves(inputs)
+        auxs = []
+        for i, variant in enumerate(variants):
+            if variant not in self._graphs:
+                self._capture(variant)
+            for static, x in zip(statics, rows):
+                static.copy_(x[i])
+            graph, names, vec = self._graphs[variant]
+            graph.replay()
+            out = vec.clone()
+            auxs.append({k: out[j] for j, k in enumerate(names)})
+        return tree_map(torch.clone, self.state), auxs
+
+
+def scan_steps(step: Callable, state, inputs, variants: Sequence, graphs: Optional[GraphedSteps] = None):
+    """The reference's `lax.scan` of gradient steps: `step(state, inputs_i,
+    variant) -> (state, aux)` on row i of `inputs` (a tree of [k, ...]
+    tensors) in order, in `graphs` when given, else eagerly. Returns (state,
+    each metric averaged over the k steps)."""
+    if graphs is not None:
+        state, auxs = graphs.run(state, inputs, variants)
+        return state, _mean_aux(auxs)
+    auxs = []
+    for i, variant in enumerate(variants):
+        state, aux = step(state, tree_map(lambda x: x[i], inputs), variant)
+        auxs.append(aux)
+    return state, _mean_aux(auxs)
+
+
+def step_program(step: Callable) -> Callable:
+    """`run(state, inputs, variants) -> (state, metrics)`: `scan_steps` of
+    `step`. On a CUDA device the steps replay CUDA graphs (`GraphedSteps`,
+    captured at the first call for the state's and a row's shapes and
+    kept); on the CPU they run eagerly."""
+    cache: dict = {}
+
+    def run(state, inputs, variants):
+        leaves = tree_leaves(state)
+        if leaves[0].device.type != "cuda":
+            return scan_steps(step, state, inputs, variants)
+        key = (leaves[0].device, tuple((t.shape, t.dtype) for t in leaves),
+               tuple((x.shape[1:], x.dtype) for x in tree_leaves(inputs)))
+        if key not in cache:
+            cache[key] = GraphedSteps(step, state, tree_map(lambda x: x[0], inputs))
+        return scan_steps(step, state, inputs, variants, cache[key])
+
+    return run
 
 
 def make_optimizer(cfg, kind: str = "adam"):

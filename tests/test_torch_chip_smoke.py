@@ -469,3 +469,31 @@ def test_rllib_algos_phase_rehearsal_on_the_cpu():
     launches = {}
     chip_smoke.phase_rllib_algos(launches, spec)
     assert set(launches["rllib_algos"]) == set(chip_smoke._kernels()) and not any(launches["rllib_algos"].values())
+
+
+def test_rllib_algos_ii_phase_is_right_after_rllib_algos():
+    assert chip_smoke.PHASES.index("rllib_algos_ii") == chip_smoke.PHASES.index("rllib_algos") + 1
+    # Its bars and settings are the reference tests' own (tests/test_rllib_algos.py:76-89,174-190,210-226,
+    # tests/test_rllib_dt.py:44-67).
+    assert chip_smoke.RL_BARS_II == {"sac": (-350.0, 200), "td3": (-350.0, 200), "ddpg": (-400.0, 200),
+                                     "dt": (150.0, 8)}
+    assert chip_smoke.PENDULUM_TRAINING == dict(train_batch_size=256, learning_starts=512, num_grad_steps=256,
+                                                minibatch_size=128, model={"hidden": (64, 64)})
+    assert chip_smoke.PENDULUM_LR == {"sac": 3e-4, "td3": 1e-3, "ddpg": 1e-3}
+    spec = chip_smoke.RLlibAlgosIISpec()
+    assert spec.bars == chip_smoke.RL_BARS_II and spec.dt_episodes == 40 and spec.training == {}
+
+
+def test_rllib_algos_ii_phase_rehearsal_on_the_cpu():
+    """The rllib_algos_ii phase's control flow on the CPU at low bars and
+    short updates (the learning bars run on the card): SAC, TD3 and DDPG
+    until Pendulum's first episodes end, DT from 8 expert episodes, each
+    update "card" vs CPU (both the CPU here; the graph-against-eager check
+    runs on the card only); 0 launches of each kernel."""
+    bars = {"sac": (-2000.0, 8), "td3": (-2000.0, 8), "ddpg": (-2000.0, 8), "dt": (20.0, 2)}
+    spec = chip_smoke.RLlibAlgosIISpec(bars=bars, dt_episodes=8, training={"num_grad_steps": 4, "learning_starts": 256},
+                                       device="cpu")
+    launches = {}
+    chip_smoke.phase_rllib_algos_ii(launches, spec)
+    assert set(launches["rllib_algos_ii"]) == set(chip_smoke._kernels())
+    assert not any(launches["rllib_algos_ii"].values())

@@ -124,6 +124,10 @@ RUNTIME_COPY = (
     "rllib/algorithms/a2c.py", "rllib/algorithms/impala.py", "rllib/algorithms/appo.py",
     "rllib/algorithms/dqn.py", "rllib/algorithms/apex_dqn.py", "rllib/algorithms/bc.py",
     "rllib/algorithms/marwil.py", "rllib/algorithms/cql.py",
+    # RLlib's continuous-control algorithms and the Decision Transformer
+    # (ports: PORTS; DDPG, TD3 with other settings, a copy).
+    "rllib/algorithms/sac.py", "rllib/algorithms/td3.py", "rllib/algorithms/ddpg.py",
+    "rllib/algorithms/dt.py",
 )
 # Port-only files inside the copied directories.
 PORT_ONLY = {"core/devices.py", "core/host_names.py", "rllib/utils/tree.py"}
@@ -179,8 +183,9 @@ DIVERGES = {
     "models/gbdt.py": "the booster on torch tensors on a device, a deterministic scatter-add (PORTS)",
     "train/gbdt_trainer.py": "a GPU worker by default; the loop fits on the worker's device; docstrings name "
                              "the torch booster",
-    "rllib/__init__.py": "exports what is ported (PPO, multi-agent PPO, the env API, runners, connectors, "
-                         "offline, replay buffers); docstring names the torch learner and runners",
+    "rllib/__init__.py": "exports what is ported (every algorithm but DreamerV3, the env API, runners, "
+                         "connectors, offline, replay buffers; not podracer); docstring names the torch "
+                         "learner and runners",
     "rllib/utils/optim.py": "a functional optimizer with optax's semantics in torch (PORTS)",
     "rllib/utils/gae.py": "the reverse scan as a loop over T in torch (PORTS)",
     "rllib/core/catalog.py": "encoders in torch: F.conv2d on NCHW with HWIO kernels, the LSTM scan as a loop "
@@ -205,11 +210,20 @@ DIVERGES = {
     "rllib/algorithms/impala.py": "the V-trace update eager in torch, the reverse scan a loop over T (PORTS)",
     "rllib/algorithms/appo.py": "the clipped surrogate on IMPALA's V-trace, eager in torch (PORTS)",
     "rllib/algorithms/dqn.py": "QPolicyModule over torch tensors with torch.Generator epsilon-greedy; the "
-                               "minibatch scan a loop (PORTS)",
+                               "minibatch scan a loop, each step a CUDA graph on the card (PORTS)",
     "rllib/algorithms/apex_dqn.py": "the TD errors for new priorities in torch on the learner's device (PORTS)",
     "rllib/algorithms/bc.py": "the update split into permutations and the update given them (PORTS)",
     "rllib/algorithms/marwil.py": "the loss in torch over BC's update (PORTS)",
     "rllib/algorithms/cql.py": "the update split into permutations and the update given them (PORTS)",
+    "rllib/algorithms/sac.py": "the update's normal draws taken apart from it (update.with_draws), "
+                               "sample_action given its draw; each gradient step a CUDA graph on the card "
+                               "(PORTS)",
+    "rllib/algorithms/td3.py": "the target-policy noise drawn apart from the update (update.with_draws); the "
+                               "policy-delay cond a host branch; each gradient step a CUDA graph on the card "
+                               "(PORTS)",
+    "rllib/algorithms/dt.py": "the port's _block (no mesh, a 4-tuple) looped over layers and "
+                              "init_params(cfg, seed); the time embedding clamped, its out-of-range rows "
+                              "without gradient, as JAX's gather; evaluation on the learner's device (PORTS)",
 }
 # Diverging files that are ports, held by their structure, not line by line:
 # a class (its methods in the reference's order, its step()'s calls in
@@ -241,7 +255,7 @@ PORTS = {
     "rllib/env/ma_runner.py": {"module": ["rllib/env/ma_runner.py"]},
     "rllib/algorithms/ppo.py": {"module": ["rllib/algorithms/ppo.py"]},
     **{f"rllib/algorithms/{name}.py": {"module": [f"rllib/algorithms/{name}.py"]}
-       for name in ("a2c", "impala", "appo", "dqn", "apex_dqn", "bc", "marwil", "cql")},
+       for name in ("a2c", "impala", "appo", "dqn", "apex_dqn", "bc", "marwil", "cql", "sac", "td3", "dt")},
 }
 
 
@@ -442,6 +456,8 @@ def test_importing_the_port_loads_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.rllib.core, ray_tpu_torch.rllib.env.ma_runner, ray_tpu_torch.rllib.offline\n"
         "import ray_tpu_torch.rllib.algorithms.apex_dqn, ray_tpu_torch.rllib.algorithms.cql\n"
         "import ray_tpu_torch.rllib.algorithms.appo, ray_tpu_torch.rllib.algorithms.marwil\n"
+        "import ray_tpu_torch.rllib.algorithms.sac, ray_tpu_torch.rllib.algorithms.td3\n"
+        "import ray_tpu_torch.rllib.algorithms.ddpg, ray_tpu_torch.rllib.algorithms.dt\n"
         "new = set(sys.modules) - before\n"
         f"print(sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}))\n"
     )
@@ -463,14 +479,16 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from ray_tpu_torch.rllib.core import DiscretePolicyModule
     from ray_tpu_torch.rllib.core.rl_module import params_from_numpy
     from ray_tpu_torch.rllib.env.multi_agent import make_multi_agent
-    from ray_tpu_torch.rllib import (A2CConfig, APPOConfig, ApexDQNConfig, BCConfig, CQLConfig, DQNConfig,
-                                     IMPALAConfig, MARWILConfig)
-    from ray_tpu_torch.rllib.offline import OfflineDataset
+    from ray_tpu_torch.rllib import (A2CConfig, APPOConfig, ApexDQNConfig, BCConfig, CQLConfig, DDPGConfig,
+                                     DQNConfig, DTConfig, IMPALAConfig, MARWILConfig, SACConfig, TD3Config)
+    from ray_tpu_torch.rllib.offline import EpisodeDataset, OfflineDataset
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     demos = OfflineDataset(np.zeros((8, 4), np.float32), np.zeros(8, np.int64), np.zeros(8, np.float32),
                            rewards=np.zeros(8, np.float32), next_obs=np.zeros((8, 4), np.float32),
                            dones=np.zeros(8, np.float32))
+    episodes = EpisodeDataset([{"obs": np.zeros((3, 4), np.float32), "actions": np.zeros(3, np.int64),
+                                "rewards": np.ones(3, np.float32)}])
     cfg = gpt.GPTConfig(vocab_size=16, n_layers=1, d_model=8, n_heads=2, d_head=4, d_mlp=16,
                         max_seq=16, dtype=torch.float32)
     params = gpt.init_params(cfg, seed=0, device="cpu")
@@ -502,6 +520,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: ApexDQNConfig().environment("CartPole-v1").build(),
         *[lambda c=c: c.environment("CartPole-v1").offline_data(dataset=demos).build()
           for c in (BCConfig(), MARWILConfig(), CQLConfig())],
+        # The continuous-control algorithms and DT: their learner and local runner.
+        *[lambda c=c: c.environment("Pendulum-v1").env_runners(num_env_runners=0).build()
+          for c in (SACConfig(), TD3Config(), DDPGConfig())],
+        lambda: DTConfig().environment("CartPole-v1").training(target_return=10.0).offline_data(episodes).build(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
