@@ -115,6 +115,16 @@ Phases:
               update (ms a gradient step each way); one update of each of
               the four card vs CPU (f32, the same draws); iterations, env
               steps, sample and update ms, one update's idle share
+  6f'''. rllib_dreamer DreamerV3 on CartPole-v1, the learner and local runner
+              on the card: the reference's world-model smoke (6 iterations,
+              4 gradient steps of 16 sequences: recon falls, losses finite),
+              then mean reward 130 within 120 iterations at the defaults
+              (seed 0); each gradient step (world model, imagination,
+              behaviour, three Adams, EMA critic, return scale) and each
+              acting step replayed as one CUDA graph, held bit for bit
+              against the same steps eager at the first update; one update
+              card vs CPU (f32, the same Gumbel noise); iterations, env
+              steps, sample and update ms, one update's idle share
   6g. parallel the mesh path on a one-rank NCCL world (make_mesh(), all six
               axes 1): gpt2-medium-moe (8 experts, top-2) training at full
               width through make_train_step(mesh=) (tokens/s, step ms,
@@ -163,7 +173,8 @@ import types
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 PHASES = ("device", "build", "kernels", "parity", "train_parity", "train", "trainer", "mpmd", "data",
-          "gbdt", "rllib", "rllib_algos", "rllib_algos_ii", "parallel", "generate", "engine", "runtime", "serve")
+          "gbdt", "rllib", "rllib_algos", "rllib_algos_ii", "rllib_dreamer", "parallel", "generate", "engine",
+          "runtime", "serve")
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, SXM
 H100_F32_FLOPS = 67e12     # CUDA-core f32 peak, SXM
 H100_BYTES_PER_S = 3.35e12
@@ -247,8 +258,7 @@ def profiled_ms(fn, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
+    us = sum(end - start for _, start, end in device_events(prof, torch.autograd.DeviceType.CUDA))
     if us <= 0:
         raise AssertionError("the profiler recorded no device time")
     return us / iters / 1e3
@@ -3573,7 +3583,7 @@ def phase_rllib_algos_ii(launches: dict, spec: RLlibAlgosIISpec | None = None) -
                     iter_s.append(time.perf_counter() - t_it)
                     if not offline and name not in graphs and tap.batch is not None and on_card:
                         # The first update: its graph against its eager steps, before any bar.
-                        draws = _draws(name, tap.batch, device)
+                        draws = _draws(name, tap.batch, device, learner._update)
                         graphs[name] = _graph_against_eager(learner._update, learner.state,
                                                             to_device(tap.batch, device), draws)
                         g = graphs[name]
@@ -3649,7 +3659,8 @@ def _leaf_names(tree, prefix: str = "") -> list:
 def _update_card_vs_cpu(name: str, algo, learner, batch, device) -> dict:
     """One update of the learner's (its gradient steps on `batch`, from its
     last state, given draws or permutations from a CPU generator seeded 1;
-    SAC, TD3 and DDPG on the batch's first CARD_VS_CPU_STEPS minibatches)
+    SAC, TD3 and DDPG on the batch's first CARD_VS_CPU_STEPS minibatches,
+    DreamerV3 on its k sequence batches)
     card vs CPU, step by step: step i on the card starts from the CPU's
     state after step i - 1, and its params and metrics are held to the
     CPU's step i, each tensor within tol·(1 + its largest |entry|) (the CPU
@@ -3684,7 +3695,7 @@ def _update_card_vs_cpu(name: str, algo, learner, batch, device) -> dict:
         steps = cfg.num_epochs * n_mb
     else:
         batch = {k: v[:CARD_VS_CPU_STEPS] for k, v in batch.items()}
-        draws = _draws(name, batch, "cpu")
+        draws = _draws(name, batch, "cpu", update)
         scan = {dev: update.scan_inputs(to_device(batch, dev), to_device(draws, dev)) for dev in (device, "cpu")}
         variants = scan["cpu"][1]
 
@@ -3716,17 +3727,208 @@ def _update_card_vs_cpu(name: str, algo, learner, batch, device) -> dict:
     return {**worst, "steps": steps, "through": errs[j], "through_leaf": names[j]}
 
 
-def _draws(name: str, batch, device):
-    """The update's normal draws for `batch` ([k, mb, act_dim] each) from a
-    CPU generator seeded 1, on `device`: SAC's two, TD3's and DDPG's one."""
+def _draws(name: str, batch, device, update):
+    """The update's draws for `batch` from a CPU generator seeded 1, on
+    `device`: SAC's two normals, TD3's and DDPG's one ([k, mb, act_dim]
+    each), DreamerV3's Gumbel noise (`update.draw`)."""
     import torch
 
+    from ray_tpu_torch.rllib.utils.tree import to_device
+
     gen = torch.Generator().manual_seed(1)
+    if name == "dreamerv3":
+        return to_device(update.draw(batch, gen), device)
     shape = batch["actions"].shape
     if name == "sac":
         return {n: torch.randn(shape, generator=gen).to(device) for n in ("next", "actor")}
     return torch.randn(shape, generator=gen).to(device)
 
+
+
+# ----------------------------------------------------------- rllib_dreamer
+# The reference's DreamerV3 tests (`tests/test_rllib_dreamer.py:28-67`): the
+# world-model smoke's settings and iterations, and the CartPole bar (mean
+# reward, iteration limit) at the defaults; both CartPole-v1, 8 envs,
+# fragments of 64, seed 0.
+DREAMER_RUNNERS = dict(num_env_runners=0, num_envs_per_env_runner=8, rollout_fragment_length=64)
+DREAMER_SMOKE = dict(num_grad_steps=4, batch_size_seqs=16)
+DREAMER_SMOKE_ITERS = 6
+DREAMER_BAR = (130.0, 120)
+
+
+@dataclasses.dataclass
+class RLlibDreamerSpec:
+    """What the rllib_dreamer phase runs: the reference's world-model smoke
+    (`smoke_iters` iterations at DREAMER_SMOKE) and its CartPole bar
+    (`bar`: mean reward, iteration limit) at the defaults. `device` None:
+    the card; the CPU rehearsal (tests/test_torch_chip_smoke.py) passes a
+    low bar on "cpu", and `training` there shrinks the bar run's updates
+    (the card runs the tests' settings as they are)."""
+
+    bar: tuple = DREAMER_BAR
+    smoke_iters: int = DREAMER_SMOKE_ITERS
+    training: dict = dataclasses.field(default_factory=dict)
+    device: str | None = None
+
+
+def _dreamer(device, training: dict):
+    from ray_tpu_torch.rllib import DreamerV3Config
+
+    return (DreamerV3Config().environment("CartPole-v1").env_runners(**DREAMER_RUNNERS).training(**training)
+            .debugging(seed=0).resources(device=device).build())
+
+
+def _act_graph_against_eager(algo, device, calls: int = 64) -> dict:
+    """The local runner's recurrent acting step on the card from its current
+    observations and state with the learner's weights: the graphed `act`
+    against `act_with_draws` eager given the same Gumbel noise (each from a
+    generator seeded 5), bit for bit, and ms a call each way (`calls`
+    calls, each from the same arguments)."""
+    import torch
+
+    from ray_tpu_torch.rllib.algorithms.dreamerv3 import gumbel
+    from ray_tpu_torch.rllib.utils.tree import to_device, tree_leaves
+
+    mod, runner = algo.module, algo._local_runner
+    params = to_device(algo._weights, device)
+    obs, state = runner._obs_tensor(runner._mobs), runner._state
+    n = obs.shape[0]
+    out, ms = {}, {}
+    with torch.no_grad():
+        for how in ("graph", "eager"):
+            gen = torch.Generator(device=device).manual_seed(5)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                if how == "graph":
+                    out[how] = mod.act(params, obs, state, gen)
+                else:
+                    draws = {"z": gumbel(gen, (n, mod.G, mod.C)), "a": gumbel(gen, (n, mod.act_n))}
+                    out[how] = mod.act_with_draws(params, obs, state, draws)
+            torch.cuda.synchronize()
+            ms[how] = (time.perf_counter() - t0) * 1e3 / calls
+    equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(out["graph"]), tree_leaves(out["eager"])))
+    return {"graph_ms": ms["graph"], "eager_ms": ms["eager"], "equal": equal}
+
+
+def phase_rllib_dreamer(launches: dict, spec: RLlibDreamerSpec | None = None) -> None:
+    """DreamerV3 on CartPole-v1 through its entry point, the learner and the
+    local runner on the card: the reference's world-model smoke (recon
+    falls, every loss finite), then its learning bar (settings, seed and
+    iteration limit the test's). At the bar run's first update the update
+    replaying its CUDA graph (one a gradient step: the world model,
+    imagination, the behaviour step, three Adams, the EMA critic and the
+    return scale) against the same steps eager on the card, and the
+    runner's graphed acting step against the eager one, bit for bit;
+    after the bar one update card vs CPU (f32, TF32 off) from the
+    learner's last state, given the same Gumbel noise, step by step
+    (`_update_card_vs_cpu`), and one profiled update. Records the bar's
+    iteration and env steps, sample and update ms (p50), ms a gradient step
+    each way, the idle share and the phase wall."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rllib.utils.tree import to_device
+
+    spec = spec or RLlibDreamerSpec()
+    on_card = spec.device is None
+    device = "cuda" if on_card else spec.device
+    t_phase = time.perf_counter()
+    counts: dict = {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        # 1. The world-model smoke (`tests/test_rllib_dreamer.py:28-52`).
+        t0 = time.perf_counter()
+        algo = _dreamer(spec.device, DREAMER_SMOKE)
+        infos = []
+        with counted(counts):
+            for _ in range(spec.smoke_iters):
+                info = algo.train()["info"]["learner"]
+                if info:
+                    infos.append(info)
+        algo.stop()
+        recons = [i["recon"] for i in infos]
+        finite = all(math.isfinite(i[k]) for i in infos for k in ("wm_loss", "actor_loss", "critic_loss"))
+        log(f"rllib_dreamer world-model smoke on {device} ({spec.smoke_iters} iterations, {DREAMER_SMOKE}): recon "
+            f"{[round(x, 4) for x in recons]}, wm_loss {[round(i['wm_loss'], 4) for i in infos]}, losses finite "
+            f"{finite}; {time.perf_counter() - t0:.1f} s")
+        if len(recons) < 3 or not recons[-1] < recons[0] or not finite:
+            raise AssertionError(f"rllib_dreamer smoke: world model not learning or a loss not finite: {infos}")
+
+        # 2. The bar (`tests/test_rllib_dreamer.py:55-67`), the graph at the first update.
+        bar, max_iters = spec.bar
+        t_build = time.perf_counter()
+        algo = _dreamer(spec.device, spec.training)
+        build_s = time.perf_counter() - t_build
+        tap = _LearnerTap(algo)
+        learner = algo.learner_group.local_learner
+        best, curve, reached, graph, acting = float("-inf"), [], None, None, None
+        t0 = time.perf_counter()
+        with counted(counts):
+            for _ in range(max_iters):
+                r = algo.train()
+                if graph is None and tap.batch is not None and on_card:
+                    draws = _draws("dreamerv3", tap.batch, device, learner._update)
+                    graph = _graph_against_eager(learner._update, learner.state, to_device(tap.batch, device),
+                                                 draws)
+                    acting = _act_graph_against_eager(algo, device)
+                    log(f"rllib_dreamer first update (iteration {r['training_iteration']}, {graph['steps']} gradient "
+                        f"steps): graphed {graph['graph_ms']:.4f} ms a step, eager {graph['eager_ms']:.4f} ms a step "
+                        f"on the card, {graph['eager_ms'] / graph['graph_ms']:.2f}x; replay against eager "
+                        f"{'bit for bit' if graph['equal'] else 'NOT equal'}; the acting step graphed "
+                        f"{acting['graph_ms']:.4f} ms, eager {acting['eager_ms']:.4f} ms a call, "
+                        f"{'bit for bit' if acting['equal'] else 'NOT equal'}; that iteration sample "
+                        f"{tap.sample_s[-1] * 1e3:.1f} ms, update {tap.update_s[-1] * 1e3:.1f} ms (the capture "
+                        f"included)")
+                m = r["episode_reward_mean"]
+                curve.append(round(m, 1))
+                if np.isfinite(m):
+                    best = max(best, m)
+                if best >= bar:
+                    reached = (r["training_iteration"], r["timesteps_total"])
+                    break
+        learn_s = time.perf_counter() - t0
+        busy = None
+        t_prof = time.perf_counter()
+        if on_card:
+            busy = _profile("rllib_dreamer update (one iteration)", lambda: tap._update(tap.batch))
+        prof_s = time.perf_counter() - t_prof
+        info = r["info"]["learner"]
+        log(f"rllib_dreamer CartPole-v1 on {device}: mean reward by iteration {curve}; "
+            + (f"reached {bar} at iteration {reached[0]}, {reached[1]} env steps" if reached else
+               f"did NOT reach {bar} within {max_iters} iterations (best {best:.1f})")
+            + f"; {learn_s:.1f} s (build {build_s:.1f} s); per iteration sample "
+            f"{_LearnerTap.p50_ms(tap.sample_s):.1f} ms, update {_LearnerTap.p50_ms(tap.update_s):.1f} ms (p50 of "
+            f"{len(tap.update_s)}); last update's entropy {info.get('entropy', float('nan')):.4f}, ret_scale "
+            f"{info.get('ret_scale', float('nan')):.4f}"
+            + (f"; device events in one update {busy} (the profile {prof_s:.1f} s)" if busy is not None else ""))
+        if reached is None:
+            raise AssertionError(f"rllib_dreamer: learning bar missed: best {best:.1f} < {bar} in {max_iters}")
+
+        # 3. One update card vs CPU from the learner's last state, step by step.
+        t_check = time.perf_counter()
+        with counted(counts):
+            e = _update_card_vs_cpu("dreamerv3", algo, learner, tap.batch, device)
+        algo.stop()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    log(f"rllib_dreamer one update card vs CPU ({e['steps']} gradient steps from the learner's last state, f32, TF32 "
+        f"off, the same Gumbel noise), each step on the card from the CPU's state before it: params worst "
+        f"{e['params']:.3e} of 1 + the tensor's largest entry ({e['leaf']}, step {e['step']}; of the largest entry "
+        f"alone {e['relative']:.3e}, {e['relative_leaf']}), metrics {e['metrics']:.3e} (tol {RL_TOL}); the "
+        f"{e['steps']} steps run through on each device: params {e['through']:.3e} of the largest entry "
+        f"({e['through_leaf']}); {time.perf_counter() - t_check:.1f} s")
+    if max(e["params"], e["metrics"]) > RL_TOL:
+        raise AssertionError(f"rllib_dreamer card vs CPU above {RL_TOL}: params {e['params']}, metrics {e['metrics']}")
+    if on_card and not (graph and graph["equal"] and acting["equal"]):
+        raise AssertionError(f"rllib_dreamer: graph replay against eager not bit-equal: update {graph}, acting "
+                             f"{acting}")
+    launches["rllib_dreamer"] = counts
+    log(f"rllib_dreamer launches {counts}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    if any(counts.get(k, 0) for k in _kernels()):
+        raise AssertionError(f"rllib_dreamer: an attention or RMSNorm kernel was launched: {counts}")
 
 
 # ------------------------------------------------------------------ parallel
@@ -4074,6 +4276,27 @@ def phase_generate(cfg, params, launches: dict) -> dict:
     return {"prompt": prompt.cpu(), "tokens": toks.cpu(), "tokens_per_s": B * N / wall}
 
 
+def device_events(prof, device_type) -> list:
+    """(name, start µs, end µs) of each event of a finished profile on
+    `device_type`, user annotations left out (e.g. "Optimizer.step#AdamW.step",
+    which also appears on the device timeline, spans idle gaps and is no
+    kernel). Read from the profiler's raw results: the events, names (as
+    `StringTable` demangles them) and times from the trace's start that
+    `prof.events()` gives, without the Python tree it builds over every
+    event, CPU ones included (≈90 µs an event)."""
+    import torch
+
+    result = prof.profiler.kineto_results
+    t0 = result.trace_start_ns()
+    out = []
+    for e in result.events():
+        if e.device_type() == device_type and not e.is_user_annotation():
+            name = e.name()
+            out.append((torch._C._demangle(name) if len(name) > 1 else name,
+                        (e.start_ns() - t0) / 1000, (e.end_ns() - t0) / 1000))
+    return out
+
+
 def _profile(label: str, fn):
     """Device busy time, idle share and the top kernels of one call of fn,
     from torch.profiler (the profiler's own overhead lengthens host time).
@@ -4086,12 +4309,9 @@ def _profile(label: str, fn):
         fn()
         torch.cuda.synchronize()
     spans, by_name = [], {}
-    for e in prof.events():
-        # User annotations (e.g. "Optimizer.step#AdamW.step") also appear on
-        # the device timeline; they span idle gaps and are not kernels.
-        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    for name, start, end in device_events(prof, torch.autograd.DeviceType.CUDA):
+        spans.append((start, end))
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
     if not spans:
         log(f"profile {label}: no device events recorded (device time not measured)")
         return None
@@ -4898,6 +5118,9 @@ def main(argv=None) -> int:
     if "rllib_algos_ii" in phases:
         with wall("rllib_algos_ii"):
             phase_rllib_algos_ii(launches)
+    if "rllib_dreamer" in phases:
+        with wall("rllib_dreamer"):
+            phase_rllib_dreamer(launches)
     if "parallel" in phases:
         with wall("parallel"):
             phase_parallel(launches)

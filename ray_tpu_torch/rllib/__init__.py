@@ -13,9 +13,9 @@ the redesign of RLlib's new API stack: `rllib/core/learner/learner.py:95`,
 
 The port has PPO and multi-agent PPO with the env API, the runners,
 connectors, offline data and replay buffers, the discrete-action
-algorithms (IMPALA, DQN, APPO, BC, MARWIL, A2C, Ape-X DQN, CQL), and SAC,
-TD3, DDPG and the Decision Transformer (DT); DreamerV3 and the podracer
-planes are not ported yet (ROADMAP queue 1).
+algorithms (IMPALA, DQN, APPO, BC, MARWIL, A2C, Ape-X DQN, CQL), SAC,
+TD3, DDPG, the Decision Transformer (DT) and DreamerV3; the podracer planes
+are not ported yet (ROADMAP queue 1).
 """
 
 from .algorithms.algorithm import Algorithm
@@ -34,8 +34,8 @@ from .algorithms.apex_dqn import ApexDQN, ApexDQNConfig
 from .algorithms.cql import CQL, CQLConfig
 from .algorithms.dt import DT, DTConfig
 from .algorithms.multi_agent_ppo import MultiAgentPPO, MultiAgentPPOConfig
-# reference: DreamerV3 (`ray_tpu/rllib/__init__.py:33`) and `from . import podracer` (`:35`) are
-# not ported yet.
+from .algorithms.dreamerv3 import DreamerV3, DreamerV3Config
+# reference: `from . import podracer` (`ray_tpu/rllib/__init__.py:35`) is not ported yet.
 from . import connectors
 from . import offline
 from .env import register_env, make_env
@@ -73,7 +73,8 @@ __all__ = [
     "DT",
     "DTConfig",
     "MultiAgentPPO",
-    # reference: "DreamerV3", "DreamerV3Config" (`:71-72`) are not ported yet.
+    "DreamerV3",
+    "DreamerV3Config",
     "MultiAgentPPOConfig",
     "connectors",
     "offline",

@@ -4,8 +4,9 @@ Reference analog: `rllib/algorithms/a2c/a2c.py` (A3C's synchronous variant:
 on-policy rollouts, GAE advantages, a SINGLE full-batch gradient step per
 iteration — no ratio clipping, no minibatch epochs). Shares PPO's runner
 and GAE machinery; the JAX reference (`ray_tpu/rllib/algorithms/a2c.py`)
-jits the update into one XLA program, the port runs it eagerly on the
-learner's device, op for op.
+jits the update into one XLA program, the port runs it on the learner's
+device, op for op, GAE and the step one CUDA graph on the card
+(`optim.step_program`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,10 @@ class A2CConfig(AlgorithmConfig):
         self.entropy_coeff: float = 0.01
         self.lr = 7e-4
         self.train_batch_size = 512
+
+
+# The batch fields GAE and the loss read (`optim.single_step_update`).
+_GAE_KEYS = ("obs", "actions", "logp", "values", "rewards", "dones", "last_obs")
 
 
 def make_a2c_update(module, opt, cfg: A2CConfig):
@@ -53,17 +58,16 @@ def make_a2c_update(module, opt, cfg: A2CConfig):
 
     value_and_grad = optim.value_and_grad(loss_fn)
 
-    def update(state, batch, gen):
+    def step(state, batch):
         from ..utils.gae import compute_gae, flatten_time_major
 
-        del gen
         params, opt_state = state
         with torch.no_grad():
             advs, returns = compute_gae(module, params, batch, gamma, lam)
             flat = flatten_time_major(batch, advs, returns)
         return optim.gradient_step(opt, value_and_grad, (params, opt_state), flat)
 
-    return update
+    return optim.single_step_update(step, _GAE_KEYS)
 
 
 class A2C(Algorithm):

@@ -3,9 +3,9 @@
 IMPALA's decoupled actor-learner architecture (stale-weight async rollouts,
 consume-as-they-arrive) with PPO's clipped-surrogate objective computed on
 V-trace-corrected advantages — the reference's exact hybrid. Reuses the
-IMPALA driver loop and its V-trace; only the update differs (eager on the
-learner's device, where the JAX reference, `ray_tpu/rllib/algorithms/appo.py`,
-jits one XLA program).
+IMPALA training loop and its V-trace; only the update differs (on the
+learner's device, one CUDA graph on the card, where the JAX reference,
+`ray_tpu/rllib/algorithms/appo.py`, jits one XLA program).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import torch
 
 from ..core.learner import Learner
 from ..utils import optim
-from .impala import IMPALA, IMPALAConfig, time_major_forward, vtrace
+from .impala import VTRACE_KEYS, IMPALA, IMPALAConfig, time_major_forward, vtrace
 
 
 class APPOConfig(IMPALAConfig):
@@ -59,12 +59,8 @@ def make_appo_update(module, opt, cfg: APPOConfig):
         }
 
     value_and_grad = optim.value_and_grad(loss_fn)
-
-    def update(state, batch, gen):
-        del gen
-        return optim.gradient_step(opt, value_and_grad, state, batch)
-
-    return update
+    return optim.single_step_update(lambda state, batch: optim.gradient_step(opt, value_and_grad, state, batch),
+                                    VTRACE_KEYS)
 
 
 class APPO(IMPALA):

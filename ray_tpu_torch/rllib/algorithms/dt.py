@@ -23,6 +23,7 @@ from ...device import resolve_device
 from ...models.gpt import GPTConfig, _LAYER_KEYS, _block, _layer, _norm, init_params
 from ..core.learner import Learner
 from ..offline import EpisodeDataset
+from ..utils import optim
 from ..utils.tree import to_device
 from .algorithm import Algorithm
 from .algorithm_config import AlgorithmConfig
@@ -216,7 +217,7 @@ class DT(Algorithm):
             self._fwd(params, *static)  # lazy set-up outside the capture
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with optim.graph_capture(graph):
             logits = self._fwd(params, *static)
 
         def fwd(*ctx):

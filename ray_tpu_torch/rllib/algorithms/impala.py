@@ -5,8 +5,9 @@ with (slightly) stale weights; the driver consumes batches as they arrive
 (`ray_tpu_torch.wait`), corrects off-policyness with **V-trace**, and
 re-arms each runner with fresh weights. The JAX reference
 (`ray_tpu/rllib/algorithms/impala.py`) jits the V-trace update into one XLA
-program per arriving batch; the port runs it eagerly on the learner's
-device, its reverse `lax.scan` a loop over T from the end.
+program per arriving batch; the port runs it on the learner's device, its
+reverse `lax.scan` a loop over T from the end, the update one CUDA graph on
+the card (`optim.step_program`).
 """
 
 from __future__ import annotations
@@ -85,6 +86,10 @@ def vtrace(batch, values, last_val, clipped_rhos, cs, gamma: float):
     return vs, pg_adv
 
 
+# The batch fields the V-trace losses read (`optim.single_step_update`).
+VTRACE_KEYS = ("obs", "actions", "logp", "rewards", "dones", "last_obs")
+
+
 def make_vtrace_update(module, opt, cfg: IMPALAConfig):
     gamma = cfg.gamma
     rho_bar = cfg.vtrace_clip_rho_threshold
@@ -114,12 +119,8 @@ def make_vtrace_update(module, opt, cfg: IMPALAConfig):
         return total, aux
 
     value_and_grad = optim.value_and_grad(loss_fn)
-
-    def update(state, batch, gen):
-        del gen
-        return optim.gradient_step(opt, value_and_grad, state, batch)
-
-    return update
+    return optim.single_step_update(lambda state, batch: optim.gradient_step(opt, value_and_grad, state, batch),
+                                    VTRACE_KEYS)
 
 
 class IMPALA(Algorithm):

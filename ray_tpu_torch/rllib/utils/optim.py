@@ -20,13 +20,16 @@ the step every learner's update takes. `make_minibatch_update` is the
 epoch loop of PPO, BC, MARWIL, CQL and DT (the reference's nested
 `lax.scan` over permuted minibatches), split into the permutations, drawn
 from the learner's generator, and the update given them. `step_program` is
-the scan of those minibatch steps and of DQN's, SAC's, TD3's and DDPG's
-gradient steps: on the card each step is one CUDA graph (`GraphedSteps`),
-replayed once a minibatch.
+the scan of those minibatch steps and of DQN's, SAC's, TD3's, DDPG's and
+DreamerV3's gradient steps, and runs A2C's, IMPALA's and APPO's single step:
+on the card each step is one CUDA graph (`GraphedSteps`), replayed once a
+step.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
@@ -218,6 +221,23 @@ def make_minibatch_update(step: Callable, num_epochs: int, minibatch_size: int,
     return update
 
 
+@contextlib.contextmanager
+def graph_capture(graph):
+    """`torch.cuda.graph(graph)` with Python's cyclic garbage collector off.
+    A CUDA graph left in a dead reference cycle (an earlier learner's, or an
+    earlier algorithm's) and collected in the middle of a capture is
+    destroyed there, and destroying a graph while a stream captures
+    invalidates the capture (cudaErrorStreamCaptureInvalidated)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class GraphedSteps:
     """The gradient steps of one update, each variant of the step captured
     once as a CUDA graph over one set of static tensors: the state, and the
@@ -246,7 +266,7 @@ class GraphedSteps:
                 self._step(self.state, self.inputs, variant)
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with graph_capture(graph):
             new, aux = self._step(self.state, self.inputs, variant)
             moved = [(static, out) for static, out in zip(tree_leaves(self.state), tree_leaves(new))
                      if out is not static]
@@ -307,6 +327,21 @@ def step_program(step: Callable) -> Callable:
         return scan_steps(step, state, inputs, variants, cache[key])
 
     return run
+
+
+def single_step_update(step: Callable, keys: Sequence[str]) -> Callable:
+    """`update(state, batch, gen) -> (state, metrics)`: one gradient step
+    `step(state, batch) -> (state, aux)` on the batch's `keys` fields (the
+    fields the step reads: a graph's inputs keep their shapes, and a
+    batch's episode stats vary in length), through `step_program`: one CUDA
+    graph on the card, eager on the CPU; the update draws nothing."""
+    program = step_program(lambda st, b, _: step(st, b))
+
+    def update(state, batch, gen):
+        del gen
+        return program(state, {k: batch[k][None] for k in keys}, [None])
+
+    return update
 
 
 def make_optimizer(cfg, kind: str = "adam"):

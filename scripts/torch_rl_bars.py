@@ -1,11 +1,13 @@
-"""Where the continuous-control and sequence-model bars fall, by device and
-seed: the port's SAC, TD3 and DDPG on Pendulum-v1 and its Decision
-Transformer on CartPole-v1 (`ray_tpu_torch.rllib`), at the reference tests'
-settings, bars and iteration limits (`tests/test_rllib_algos.py:76-89,
-174-190,210-226`, `tests/test_rllib_dt.py:44-67`; `chip_smoke.py`'s
-`RL_BARS_II`, `PENDULUM_TRAINING`, `PENDULUM_LR`), each run to its bar or
-its limit. `--seed` re-seeds the algorithm (learner, runner, replay or
-subsequence sampling; DT's expert episodes keep seed 3).
+"""Where the continuous-control, sequence-model and model-based bars fall,
+by device and seed: the port's SAC, TD3 and DDPG on Pendulum-v1, its
+Decision Transformer and its DreamerV3 on CartPole-v1
+(`ray_tpu_torch.rllib`), at the reference tests' settings, bars and
+iteration limits (`tests/test_rllib_algos.py:76-89,174-190,210-226`,
+`tests/test_rllib_dt.py:44-67`, `tests/test_rllib_dreamer.py:55-67`;
+`chip_smoke.py`'s `RL_BARS_II`, `PENDULUM_TRAINING`, `PENDULUM_LR`,
+`DREAMER_RUNNERS`, `DREAMER_BAR`), each run to its bar or its limit.
+`--seed` re-seeds the algorithm (learner, runner, replay or subsequence
+sampling; DT's expert episodes keep seed 3).
 
     python scripts/torch_rl_bars.py --algo sac --device cpu --seed 0
 
@@ -26,9 +28,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def build(algo: str, device: str, seed: int):
     import chip_smoke
-    from ray_tpu_torch.rllib import DDPGConfig, DTConfig, SACConfig, TD3Config
+    from ray_tpu_torch.rllib import DDPGConfig, DreamerV3Config, DTConfig, SACConfig, TD3Config
     from ray_tpu_torch.rllib.offline import collect_episodes
 
+    if algo == "dreamerv3":
+        return (DreamerV3Config().environment("CartPole-v1").env_runners(**chip_smoke.DREAMER_RUNNERS)
+                .debugging(seed=seed).resources(device=device).build())
     if algo == "dt":
         demos = collect_episodes("CartPole-v1", chip_smoke._cartpole_expert, n_episodes=40, seed=3)
         return (DTConfig().environment("CartPole-v1")
@@ -46,7 +51,7 @@ def run(algo: str, device: str, seed: int) -> dict:
 
     import chip_smoke
 
-    bar, limit = chip_smoke.RL_BARS_II[algo]
+    bar, limit = chip_smoke.DREAMER_BAR if algo == "dreamerv3" else chip_smoke.RL_BARS_II[algo]
     a = build(algo, device, seed)
     curve, reached, best = [], None, -math.inf
     t0 = time.perf_counter()
@@ -66,7 +71,7 @@ def run(algo: str, device: str, seed: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--algo", choices=("sac", "td3", "ddpg", "dt"), required=True)
+    ap.add_argument("--algo", choices=("sac", "td3", "ddpg", "dt", "dreamerv3"), required=True)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)

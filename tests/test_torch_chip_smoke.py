@@ -497,3 +497,32 @@ def test_rllib_algos_ii_phase_rehearsal_on_the_cpu():
     chip_smoke.phase_rllib_algos_ii(launches, spec)
     assert set(launches["rllib_algos_ii"]) == set(chip_smoke._kernels())
     assert not any(launches["rllib_algos_ii"].values())
+
+
+def test_rllib_dreamer_phase_is_right_after_rllib_algos_ii():
+    assert chip_smoke.PHASES.index("rllib_dreamer") == chip_smoke.PHASES.index("rllib_algos_ii") + 1
+    # Its smoke and bar are the reference tests' own (tests/test_rllib_dreamer.py:28-67).
+    assert chip_smoke.DREAMER_RUNNERS == dict(num_env_runners=0, num_envs_per_env_runner=8, rollout_fragment_length=64)
+    assert chip_smoke.DREAMER_SMOKE == dict(num_grad_steps=4, batch_size_seqs=16)
+    assert (chip_smoke.DREAMER_SMOKE_ITERS, chip_smoke.DREAMER_BAR) == (6, (130.0, 120))
+    spec = chip_smoke.RLlibDreamerSpec()
+    assert (spec.bar, spec.smoke_iters, spec.training, spec.device) == (chip_smoke.DREAMER_BAR, 6, {}, None)
+
+
+def test_rllib_dreamer_phase_rehearsal_on_the_cpu():
+    """The rllib_dreamer phase's control flow on the CPU at a low bar and
+    short updates (the learning bar runs on the card): the world-model
+    smoke at its settings, the bar run updating from its first iteration,
+    the update "card" vs CPU (both the CPU here; the graph-against-eager
+    check runs on the card only); 0 launches of each kernel."""
+    spec = chip_smoke.RLlibDreamerSpec(bar=(10.0, 3), device="cpu",
+                                       training={"num_grad_steps": 2, "batch_size_seqs": 4, "learning_starts": 512})
+    launches = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # thousands of small ops: a loaded machine's thread pool slows them
+    try:
+        chip_smoke.phase_rllib_dreamer(launches, spec)
+    finally:
+        torch.set_num_threads(threads)
+    assert set(launches["rllib_dreamer"]) == set(chip_smoke._kernels())
+    assert not any(launches["rllib_dreamer"].values())

@@ -128,6 +128,9 @@ RUNTIME_COPY = (
     # (ports: PORTS; DDPG, TD3 with other settings, a copy).
     "rllib/algorithms/sac.py", "rllib/algorithms/td3.py", "rllib/algorithms/ddpg.py",
     "rllib/algorithms/dt.py",
+    # DreamerV3 (a port: PORTS; its fragment replay copied line for line,
+    # tests/test_torch_rllib_dreamer.py).
+    "rllib/algorithms/dreamerv3.py",
 )
 # Port-only files inside the copied directories.
 PORT_ONLY = {"core/devices.py", "core/host_names.py", "rllib/utils/tree.py"}
@@ -183,9 +186,9 @@ DIVERGES = {
     "models/gbdt.py": "the booster on torch tensors on a device, a deterministic scatter-add (PORTS)",
     "train/gbdt_trainer.py": "a GPU worker by default; the loop fits on the worker's device; docstrings name "
                              "the torch booster",
-    "rllib/__init__.py": "exports what is ported (every algorithm but DreamerV3, the env API, runners, "
-                         "connectors, offline, replay buffers; not podracer); docstring names the torch "
-                         "learner and runners",
+    "rllib/__init__.py": "exports what is ported (every algorithm, the env API, runners, connectors, "
+                         "offline, replay buffers; not podracer); docstring names the torch learner and "
+                         "runners",
     "rllib/utils/optim.py": "a functional optimizer with optax's semantics in torch (PORTS)",
     "rllib/utils/gae.py": "the reverse scan as a loop over T in torch (PORTS)",
     "rllib/core/catalog.py": "encoders in torch: F.conv2d on NCHW with HWIO kernels, the LSTM scan as a loop "
@@ -206,9 +209,11 @@ DIVERGES = {
     "rllib/offline/__init__.py": "OfflineDataset carries rewards, next_obs and dones, and collect_dataset "
                                  "records them with transitions=True (the reference's CQL reads them, its "
                                  "dataset has none)",
-    "rllib/algorithms/a2c.py": "the update eager in torch on the learner's device (PORTS)",
-    "rllib/algorithms/impala.py": "the V-trace update eager in torch, the reverse scan a loop over T (PORTS)",
-    "rllib/algorithms/appo.py": "the clipped surrogate on IMPALA's V-trace, eager in torch (PORTS)",
+    "rllib/algorithms/a2c.py": "the update in torch on the learner's device, one CUDA graph on the card (PORTS)",
+    "rllib/algorithms/impala.py": "the V-trace update in torch, the reverse scan a loop over T, one CUDA graph on "
+                                  "the card (PORTS)",
+    "rllib/algorithms/appo.py": "the clipped surrogate on IMPALA's V-trace, in torch, one CUDA graph on the card "
+                                "(PORTS)",
     "rllib/algorithms/dqn.py": "QPolicyModule over torch tensors with torch.Generator epsilon-greedy; the "
                                "minibatch scan a loop, each step a CUDA graph on the card (PORTS)",
     "rllib/algorithms/apex_dqn.py": "the TD errors for new priorities in torch on the learner's device (PORTS)",
@@ -221,6 +226,11 @@ DIVERGES = {
     "rllib/algorithms/td3.py": "the target-policy noise drawn apart from the update (update.with_draws); the "
                                "policy-delay cond a host branch; each gradient step a CUDA graph on the card "
                                "(PORTS)",
+    "rllib/algorithms/dreamerv3.py": "every categorical draw a Gumbel argmax given its noise, drawn apart: "
+                                     "act from the runner's generator (act_with_draws), the update's from "
+                                     "the learner's (update.with_draws); the two scans loops; critic_t "
+                                     "starts as critic's copy; percentile as JAX's sort and interpolation; "
+                                     "each gradient step a CUDA graph on the card (PORTS)",
     "rllib/algorithms/dt.py": "the port's _block (no mesh, a 4-tuple) looped over layers and "
                               "init_params(cfg, seed); the time embedding clamped, its out-of-range rows "
                               "without gradient, as JAX's gather; evaluation on the learner's device (PORTS)",
@@ -255,7 +265,8 @@ PORTS = {
     "rllib/env/ma_runner.py": {"module": ["rllib/env/ma_runner.py"]},
     "rllib/algorithms/ppo.py": {"module": ["rllib/algorithms/ppo.py"]},
     **{f"rllib/algorithms/{name}.py": {"module": [f"rllib/algorithms/{name}.py"]}
-       for name in ("a2c", "impala", "appo", "dqn", "apex_dqn", "bc", "marwil", "cql", "sac", "td3", "dt")},
+       for name in ("a2c", "impala", "appo", "dqn", "apex_dqn", "bc", "marwil", "cql", "sac", "td3", "dt",
+                    "dreamerv3")},
 }
 
 
@@ -458,6 +469,7 @@ def test_importing_the_port_loads_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.rllib.algorithms.appo, ray_tpu_torch.rllib.algorithms.marwil\n"
         "import ray_tpu_torch.rllib.algorithms.sac, ray_tpu_torch.rllib.algorithms.td3\n"
         "import ray_tpu_torch.rllib.algorithms.ddpg, ray_tpu_torch.rllib.algorithms.dt\n"
+        "import ray_tpu_torch.rllib.algorithms.dreamerv3\n"
         "new = set(sys.modules) - before\n"
         f"print(sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}))\n"
     )
@@ -480,7 +492,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from ray_tpu_torch.rllib.core.rl_module import params_from_numpy
     from ray_tpu_torch.rllib.env.multi_agent import make_multi_agent
     from ray_tpu_torch.rllib import (A2CConfig, APPOConfig, ApexDQNConfig, BCConfig, CQLConfig, DDPGConfig,
-                                     DQNConfig, DTConfig, IMPALAConfig, MARWILConfig, SACConfig, TD3Config)
+                                     DQNConfig, DreamerV3Config, DTConfig, IMPALAConfig, MARWILConfig, SACConfig,
+                                     TD3Config)
     from ray_tpu_torch.rllib.offline import EpisodeDataset, OfflineDataset
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -524,6 +537,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         *[lambda c=c: c.environment("Pendulum-v1").env_runners(num_env_runners=0).build()
           for c in (SACConfig(), TD3Config(), DDPGConfig())],
         lambda: DTConfig().environment("CartPole-v1").training(target_return=10.0).offline_data(episodes).build(),
+        # DreamerV3: its learner and its local runner (the recurrent acting step).
+        lambda: DreamerV3Config().environment("CartPole-v1").env_runners(num_env_runners=0).build(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

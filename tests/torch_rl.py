@@ -60,4 +60,7 @@ def to_jax(tree):
 
 
 def to_torch(tree):
-    return {k: torch.from_numpy(np.array(v)) for k, v in tree.items()}
+    """The reference's tree (numpy or JAX leaves: a batch, or params such as
+    DreamerV3's `{"wm": {"gru": {"wx", "wh", "b"}, ...}, ..., "ret_scale"}`)
+    as CPU tensors of the same structure; a 0-d leaf stays 0-d."""
+    return tree_map(lambda v: torch.from_numpy(np.array(v)), tree)
