@@ -79,7 +79,7 @@ Phases:
               round trip bit for bit, its first loss within 2e-3 of
               loss_fn, its losses bit-equal to the driver's run of the
               loop's step, its checkpoint exported with HF's keys and shapes
-  6e. gbdt    the GBDT booster on the card: GradientBoostedTrees.fit on 1,000,000
+  6e. gbdt    the GBDT booster on the card: GradientBoostedTrees.fit on 500,000
               HIGGS-shaped rows (28 f32 features, seeded) at XGBoost's default
               params (depth 6, eta 0.3, 256 bins), 50 rounds, twice: the trees
               bit for bit equal, the train loss falling, the validation
@@ -125,6 +125,19 @@ Phases:
               against the same steps eager at the first update; one update
               card vs CPU (f32, the same Gumbel noise); iterations, env
               steps, sample and update ms, one update's idle share
+  6f''''. rllib_podracer the podracer planes through PPO's entry point:
+              Anakin on the card (CartPole-v1, 64 envs x 32, batch 2048,
+              minibatch 512, 4 epochs, lr 2.5e-3, seed 7) to the reference
+              test's bar in 15 iterations, its rollout one CUDA graph held
+              bit for bit against eager, one fused step card vs CPU (f32,
+              the same draws), one profiled step (rollout and update ms,
+              env steps/s, idle share) and one iteration at 4096 envs;
+              Sebulba (2 CPU actors x 32 envs x 128, the learner in a GPU
+              worker, seed 11): 2 iterations over the block transport
+              (arena stats), a SIGKILLed actor survived inside one train()
+              with the step count continuous, one more iteration, the
+              learner's update card vs CPU (build, learner step ms,
+              restart s)
   6g. parallel the mesh path on a one-rank NCCL world (make_mesh(), all six
               axes 1): gpt2-medium-moe (8 experts, top-2) training at full
               width through make_train_step(mesh=) (tokens/s, step ms,
@@ -173,8 +186,8 @@ import types
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 PHASES = ("device", "build", "kernels", "parity", "train_parity", "train", "trainer", "mpmd", "data",
-          "gbdt", "rllib", "rllib_algos", "rllib_algos_ii", "rllib_dreamer", "parallel", "generate", "engine",
-          "runtime", "serve")
+          "gbdt", "rllib", "rllib_algos", "rllib_algos_ii", "rllib_dreamer", "rllib_podracer", "parallel", "generate",
+          "engine", "runtime", "serve")
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, SXM
 H100_F32_FLOPS = 67e12     # CUDA-core f32 peak, SXM
 H100_BYTES_PER_S = 3.35e12
@@ -1706,7 +1719,7 @@ def _mpmd_plain(cfg, spec: MPMDSpec, seed: int, batch_seed: int, steps: int) -> 
 
     o = MPMDOptions(**spec.adamw)
     dev = "cuda" if spec.device is None else spec.device
-    params = {k: t.to(dev) for k, t in gpt.init_params(cfg, seed=seed, device="cpu").items()}
+    params = {k: t.to(dev, copy=True) for k, t in gpt.init_params(cfg, seed=seed, device="cpu").items()}
     step = gpt.make_train_step(cfg, AdamW(params.values(), lr=o.lr, betas=o.betas, eps=o.eps,
                                           weight_decay=o.weight_decay))
     losses = []
@@ -1805,7 +1818,44 @@ def phase_mpmd(launches: dict, gpipe: dict | None = None, spec: MPMDSpec | None 
     on a pool of them seen again, the loss falling; the card-vs-CPU parity in the
     driver; gpt2-large widths at dp=2 (tied: the bridge runs) with a
     stage-1 replica SIGKILLed after the `kill_after` result, resumed at the
-    common commit. Launches are counted in each actor, per step."""
+    common commit. Launches are counted in each actor, per step. The
+    driver draws each set of CPU params once (`_cpu_params_drawn_once`)."""
+    spec = spec or MPMDSpec()
+    with _cpu_params_drawn_once():
+        _phase_mpmd(launches, gpipe, spec)
+
+
+@contextlib.contextmanager
+def _cpu_params_drawn_once():
+    """Within the block `gpt.init_params` on the CPU from an int seed draws
+    each (config, seed, dtype) once and hands the same tensors to every
+    call, bit for bit the params a fresh draw gives; no caller in the block
+    changes them in place. A CPU draw is serial (≈9.8 s for llama-7b widths
+    at 4 layers), and the mpmd phase draws the same params for its serial
+    loss, its plain step and each of its gangs (`MPMDTrainer` seeds in the
+    driver, and again at a re-spawn)."""
+    import torch
+
+    from ray_tpu_torch.models import gpt
+
+    draw, cache = gpt.init_params, {}
+
+    def init_params(cfg, seed=0, device=None, dtype=torch.float32):
+        if isinstance(seed, int) and device is not None and torch.device(device).type == "cpu":
+            key = (repr(cfg), seed, str(dtype))
+            if key not in cache:
+                cache[key] = draw(cfg, seed=seed, device=device, dtype=dtype)
+            return dict(cache[key])
+        return draw(cfg, seed=seed, device=device, dtype=dtype)
+
+    gpt.init_params = init_params
+    try:
+        yield
+    finally:
+        gpt.init_params = draw
+
+
+def _phase_mpmd(launches: dict, gpipe: dict | None, spec: MPMDSpec) -> None:
     import tempfile
 
     import torch
@@ -1816,7 +1866,6 @@ def phase_mpmd(launches: dict, gpipe: dict | None = None, spec: MPMDSpec | None 
     from ray_tpu_torch.train.elastic import latest_common_committed
     from ray_tpu_torch.train.mpmd import theoretical_bubble_fraction
 
-    spec = spec or MPMDSpec()
     on_card = spec.device is None
     counts: dict = {}
     t_phase = time.perf_counter()
@@ -2403,10 +2452,11 @@ class GBDTSpec:
     blocks of `block_rows`. `device` None: the card; the CPU rehearsal
     (tests/test_torch_chip_smoke.py) passes a tiny size on "cpu"."""
 
-    # 2,000,000 until the rllib_algos_ii phase joined the script (its time
+    # 2,000,000 until the rllib_algos_ii phase joined the script, 1,000,000
+    # (500,000 to validate) until the rllib_podracer phase did (its time
     # limit: the host binning grows linearly with the rows).
-    rows: int = 1_000_000
-    valid_rows: int = 500_000
+    rows: int = 500_000
+    valid_rows: int = 250_000
     rounds: int = 50
     parity_rows: int = 200_000
     parity_rounds: int = 10
@@ -3931,6 +3981,345 @@ def phase_rllib_dreamer(launches: dict, spec: RLlibDreamerSpec | None = None) ->
         raise AssertionError(f"rllib_dreamer: an attention or RMSNorm kernel was launched: {counts}")
 
 
+# ------------------------------------------------------------ rllib_podracer
+@dataclasses.dataclass
+class RLlibPodracerSpec:
+    """What the rllib_podracer phase runs. Anakin: PPO CartPole-v1 at the
+    reference's learning test (`tests/test_podracer_anakin.py:95-108`: 64
+    envs x 32 steps, batch 2048, minibatch 512, 4 epochs, lr 2.5e-3, seed
+    7, 15 iterations, best mean reward > max(`factor`·first, `floor`) with
+    2 and 50), then one
+    timed iteration at `wide_envs` envs x 32. Sebulba: the reference test's
+    settings (`tests/test_podracer_sebulba.py:21-57`: 2 actors x 32 envs x
+    128 steps, minibatch 2048, 2 epochs, lr 1e-3, seed 11), `sebulba_iters`
+    iterations, a SIGKILLed actor, one more. `device` None: the card; the
+    CPU rehearsal (tests/test_torch_chip_smoke.py) passes a small size and
+    a low floor on "cpu"."""
+
+    envs: int = 64
+    rollout: int = 32
+    minibatch: int = 512
+    epochs: int = 4
+    lr: float = 2.5e-3
+    iters: int = 15
+    factor: float = 2.0
+    floor: float = 50.0
+    wide_envs: int = 4096
+    actors: int = 2
+    actor_envs: int = 32
+    actor_rollout: int = 128
+    sebulba_minibatch: int = 2048
+    sebulba_epochs: int = 2
+    sebulba_lr: float = 1e-3
+    sebulba_iters: int = 2
+    device: str | None = None
+
+
+def _anakin(spec: RLlibPodracerSpec, device, envs: int):
+    from ray_tpu_torch.rllib import PPOConfig
+
+    return (PPOConfig().environment("CartPole-v1")
+            .training(train_batch_size=envs * spec.rollout, minibatch_size=spec.minibatch, num_epochs=spec.epochs,
+                      lr=spec.lr)
+            .debugging(seed=7).podracer("anakin", num_envs=envs, rollout_len=spec.rollout)
+            .resources(device=device).build())
+
+
+def _sebulba(spec: RLlibPodracerSpec, device):
+    from ray_tpu_torch.rllib import PPOConfig
+
+    return (PPOConfig().environment("CartPole-v1")
+            .training(train_batch_size=spec.actors * spec.actor_envs * spec.actor_rollout,
+                      minibatch_size=spec.sebulba_minibatch, num_epochs=spec.sebulba_epochs, lr=spec.sebulba_lr)
+            .debugging(seed=11)
+            .podracer("sebulba", num_actors=spec.actors, envs_per_actor=spec.actor_envs,
+                      rollout_len=spec.actor_rollout, min_actors=1, max_restarts=3)
+            .resources(device=device).build())
+
+
+def _host_ms(fn, device: str, iters: int = 5) -> float:
+    """Host ms a call of `fn`, the device drained before and after (one
+    warm call first)."""
+    import torch
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _pair_errors(p_dev, p_cpu, m_dev: dict, m_cpu: dict) -> dict:
+    """Params and metrics of one update card vs CPU in the RL phases'
+    measure (`_update_card_vs_cpu`): each param tensor's worst |d| over 1 +
+    its largest entry, each metric's over max(|cpu|, 1); and beside them
+    over the largest entry alone and over |cpu| alone, with the metric that
+    is worst so."""
+    rel = {k: abs(float(m_dev[k]) - float(m_cpu[k])) / max(abs(float(m_cpu[k])), 1e-30) for k in m_cpu}
+    worst = max(rel, key=rel.get)
+    return {"params": max(_leaf_errors(p_dev, p_cpu, floor=None)), "params_rel": max(_leaf_errors(p_dev, p_cpu)),
+            "metrics": max(abs(float(m_dev[k]) - float(m_cpu[k])) / max(abs(float(m_cpu[k])), 1.0) for k in m_cpu),
+            "metrics_rel": rel[worst], "worst": f"{worst} {float(m_cpu[worst]):.4e}"}
+
+
+def _pair_line(e: dict) -> str:
+    return (f"params worst {e['params']:.3e} of 1 + each tensor's largest entry ({e['params_rel']:.3e} of the "
+            f"largest alone), metrics {e['metrics']:.3e} of max(|cpu|, 1) (of |cpu| alone {e['metrics_rel']:.3e}, "
+            f"{e['worst']}) (tol {RL_TOL})")
+
+
+def _anakin_card_vs_cpu(drv, device: str) -> dict:
+    """One fused step from the driver's state on the card and on the CPU
+    (f32), given the same draws and permutations (drawn on the CPU from a
+    generator seeded 3): the trajectories' actions and observations, and
+    params and metrics after the update (`_pair_errors`)."""
+    import torch
+
+    from ray_tpu_torch.rllib.podracer.anakin import make_anakin_step
+    from ray_tpu_torch.rllib.utils.tree import to_device
+
+    gen = torch.Generator().manual_seed(3)
+    draws = drv._step.draw(gen, drv.num_envs)
+    perms = drv._step.perms(gen, drv.rollout_len * drv.num_envs)
+    host = to_device((drv._state, drv._env_state), "cpu")
+    out = {}
+    for dev in (device, "cpu"):
+        opt, update = drv.algo._podracer_update_factory()
+        step = make_anakin_step(drv.env, drv.module, update, drv.rollout_len)
+        state, env_state = to_device(host, dev)
+        d, p = to_device(draws, dev), perms.to(dev)
+        _, traj = step.rollout(state[0], env_state, d)
+        (params, _), _, metrics, _ = step.with_draws(state, env_state, d, p)
+        out[dev] = (traj, params, metrics)
+    (t_dev, p_dev, m_dev), (t_cpu, p_cpu, m_cpu) = out[device], out["cpu"]
+    flips = int((t_dev["actions"].cpu() != t_cpu["actions"]).sum())
+    return {"flips": flips, "obs": max(_leaf_errors(t_dev["obs"], t_cpu["obs"], floor=None)),
+            **_pair_errors(p_dev, p_cpu, m_dev, m_cpu)}
+
+
+def phase_rllib_podracer(launches: dict, spec: RLlibPodracerSpec | None = None) -> None:
+    """The podracer planes through PPO's entry point. Anakin on the card:
+    the rollout's CUDA graph against the same rollout eager given the same
+    draws (bit for bit) before the first iteration, the reference test's
+    learning bar, one fused step card vs CPU (f32, TF32 off, the same
+    draws and permutations), one profiled step, the fused step split into
+    rollout and update ms, env steps/s, and one timed iteration at
+    `wide_envs` envs. Sebulba with the learner in a GPU worker, its
+    cluster booted by the plane: the reference test's iterations with the
+    block transport's stats, a SIGKILLed actor survived inside one train()
+    with the step count continuous, one more iteration, and the learner's
+    update card vs CPU given the same batch and permutations. Records the
+    build (cluster + GPU worker boot) s, the learner step ms, the restart s
+    and the phase wall."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib.utils.tree import tree_leaves
+
+    spec = spec or RLlibPodracerSpec()
+    on_card = spec.device is None
+    device = "cuda" if on_card else spec.device
+    t_phase = time.perf_counter()
+    counts: dict = {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        # 1. Anakin: the rollout graph against eager, then the learning bar
+        # (`tests/test_podracer_anakin.py:95-108`).
+        t0 = time.perf_counter()
+        algo = _anakin(spec, spec.device, spec.envs)
+        drv = algo._podracer
+        build_s = time.perf_counter() - t0
+        params, env_state = drv._state[0], drv._env_state
+        draws = drv._step.draw(torch.Generator(device=device).manual_seed(5), spec.envs)
+        graphed = drv._step.rollout(params, env_state, draws)
+        eager = drv._step.rollout_eager(params, env_state, draws)
+        replay_equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(graphed), tree_leaves(eager)))
+        roll_ms = {"graph": _host_ms(lambda: drv._step.rollout(params, env_state, draws), device),
+                   "eager": _host_ms(lambda: drv._step.rollout_eager(params, env_state, draws), device)}
+        log(f"rllib_podracer anakin rollout ({spec.rollout} steps x {spec.envs} envs) from the first iteration's "
+            f"state: {'one CUDA graph' if on_card else 'eager (the CPU)'} against eager given the same draws "
+            f"{'bit for bit' if replay_equal else 'NOT equal'}; {roll_ms['graph']:.3f} ms against "
+            f"{roll_ms['eager']:.3f} ms a rollout (build {build_s:.2f} s)")
+        curve, step_s = [], []
+        t0 = time.perf_counter()
+        with counted(counts):
+            for _ in range(spec.iters):
+                r = algo.train()
+                curve.append(r["episode_reward_mean"])
+                step_s.append(r["info"]["fused_step_seconds"])
+        learn_s = time.perf_counter() - t0
+        first, best = curve[0], max(curve)
+        bar = max(spec.factor * first, spec.floor)
+        steps = r["timesteps_total"]
+        # The fused step split into its rollout (one graph) and its update
+        # (GAE, then each minibatch step a graph), from the last state.
+        state, env_state = drv._state, drv._env_state
+        gen = torch.Generator(device=device).manual_seed(6)
+        draws = drv._step.draw(gen, spec.envs)
+        perms = drv._step.perms(gen, spec.rollout * spec.envs)
+        traj = drv._step.rollout(state[0], env_state, draws)[1]
+        batch = {k: traj[k] for k in ("obs", "actions", "logp", "values", "rewards", "dones", "last_obs")}
+        _, update = algo._podracer_update_factory()
+        split = {"rollout": _host_ms(lambda: drv._step.rollout(state[0], env_state, draws), device),
+                 "update": _host_ms(lambda: update.with_perms(state, batch, perms), device),
+                 "fused": _host_ms(lambda: drv._step.with_draws(state, env_state, draws, perms), device)}
+        prof: dict = {}
+        if on_card:
+            _profile("rllib_podracer anakin fused step (one iteration)",
+                     lambda: drv._step.with_draws(state, env_state, draws, perms), stats=prof)
+        log(f"rllib_podracer anakin PPO CartPole-v1 on {device} ({spec.envs} envs x {spec.rollout}, minibatch "
+            f"{spec.minibatch}, {spec.epochs} epochs, lr {spec.lr}, seed 7): mean reward by iteration "
+            f"{[round(x, 1) for x in curve]}; first {first:.1f}, best {best:.1f} (bar > {bar:.1f}); {steps} env steps "
+            f"in {learn_s:.2f} s, {steps / learn_s:.1f} env steps/s; fused step p50 "
+            f"{_LearnerTap.p50_ms(step_s):.3f} ms (the read-back included); from the last state: rollout "
+            f"{split['rollout']:.3f} ms, update {split['update']:.3f} ms, fused {split['fused']:.3f} ms"
+            + (f"; profiled step: busy {prof['busy_ms']:.3f} ms of {prof['window_ms']:.3f}, idle share "
+               f"{prof['idle']:.3f}, {prof['events']} device events" if prof else ""))
+        if not best > bar:
+            raise AssertionError(f"rllib_podracer anakin: learning bar missed: first {first:.1f}, best {best:.1f}")
+        if not replay_equal:
+            raise AssertionError("rllib_podracer anakin: the rollout's graph is not its eager rollout bit for bit")
+        t_check = time.perf_counter()
+        e = _anakin_card_vs_cpu(drv, device)
+        log(f"rllib_podracer anakin one fused step card vs CPU from the last state (f32, TF32 off, the same draws "
+            f"and permutations): actions differing {e['flips']} of {spec.rollout * spec.envs}; observations "
+            f"{e['obs']:.3e} of 1 + the largest entry; {_pair_line(e)}; {time.perf_counter() - t_check:.1f} s")
+        if e["flips"] or max(e["params"], e["metrics"]) > RL_TOL:
+            raise AssertionError(f"rllib_podracer anakin card vs CPU: {e} (tol {RL_TOL})")
+        algo.stop()
+        del algo, drv
+
+        # 2. Anakin at `wide_envs` envs: one timed iteration after one that
+        # captures the graphs.
+        wide = _anakin(spec, spec.device, spec.wide_envs)
+        with counted(counts):
+            w1 = wide.train()
+            w2 = wide.train()
+        wdrv = wide._podracer
+        wdraws = wdrv._step.draw(torch.Generator(device=device).manual_seed(7), spec.wide_envs)
+        wroll = _host_ms(lambda: wdrv._step.rollout(wdrv._state[0], wdrv._env_state, wdraws), device, iters=3)
+        wsteps = w2["num_env_steps_sampled_this_iter"]
+        log(f"rllib_podracer anakin at {spec.wide_envs} envs x {spec.rollout}: {wsteps} env steps, fused step "
+            f"{w2['info']['fused_step_seconds'] * 1e3:.2f} ms ({wsteps / w2['info']['fused_step_seconds']:.0f} env "
+            f"steps/s; the first, capturing, {w1['info']['fused_step_seconds'] * 1e3:.1f} ms), rollout "
+            f"{wroll:.3f} ms ({wsteps / wroll * 1e3:.0f} env steps/s)")
+        wide.stop()
+        del wide, wdrv
+
+        # 3. Sebulba, its cluster booted by the plane (`tests/test_podracer_sebulba.py:21-57`).
+        if rt.is_initialized():
+            raise AssertionError("rllib_podracer: a runtime is up before Sebulba boots its own")
+        t0 = time.perf_counter()
+        algo = _sebulba(spec, spec.device)
+        sebulba_build_s = time.perf_counter() - t0
+        _sebulba_checks(algo, spec, device, sebulba_build_s, counts)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    launches["rllib_podracer"] = counts
+    log(f"rllib_podracer launches (driver side; the Sebulba learner's process is not read) {counts}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if any(counts.get(k, 0) for k in _kernels()):
+        raise AssertionError(f"rllib_podracer: an attention or RMSNorm kernel was launched: {counts}")
+
+
+def _sebulba_checks(algo, spec: RLlibPodracerSpec, device: str, build_s: float, counts: dict) -> None:
+    """The Sebulba part of the rllib_podracer phase on a built algorithm
+    (its cluster up): its iterations, the kill, one more, the learner's
+    update card vs CPU; the runtime shut down after."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api
+    from ray_tpu_torch.rllib.env.env_runner import EnvRunner
+    from ray_tpu_torch.rllib.utils.tree import to_device
+
+    backend = api._global_runtime().backend
+    session_dir, controller = backend.session_dir, backend._controller_proc.pid
+    try:
+        drv = algo._podracer
+        where = rt.get(drv.gang.learner.device_name.remote(), timeout=60)
+        per_actor = spec.actor_envs * spec.actor_rollout
+        res = []
+        with counted(counts):
+            for _ in range(spec.sebulba_iters):
+                res.append(algo.train())
+        stats = drv.transport_stats
+        totals = [x["timesteps_total"] for x in res]
+        arena = all(a["pub_arena"] >= 1 and a["pub_inline"] == 0 for a in stats["actors"])
+        lstats = stats["learner"]
+        fetched = lstats["fetch_local"] + lstats["fetch_span"] >= spec.actors and lstats["fetch_inline"] == 0
+        # SIGKILL one actor: the same train() recovers and retries.
+        sup = drv._supervisor
+        victim = rt.get(drv.gang.actors[0].pid.remote(), timeout=30)
+        t_kill = time.perf_counter()
+        os.kill(victim, 9)
+        with counted(counts):
+            r2 = algo.train()
+        restart_s = time.perf_counter() - t_kill
+        n_after = r2["info"]["num_actors"]
+        delta = r2["timesteps_total"] - res[-1]["timesteps_total"]
+        with counted(counts):
+            r3 = algo.train()
+        after = all(a["pub_arena"] >= 1 for a in drv.transport_stats["actors"])
+        learner_ms = [x["info"]["learner_step_seconds"] * 1e3 for x in res + [r2, r3]]
+        log(f"rllib_podracer sebulba ({spec.actors} CPU actors x {spec.actor_envs} envs x {spec.actor_rollout}, the "
+            f"learner on {where}; minibatch {spec.sebulba_minibatch}, {spec.sebulba_epochs} epochs, lr "
+            f"{spec.sebulba_lr}, seed 11): build {build_s:.2f} s (the cluster's boot and the gang's spawn, the "
+            f"learner's worker included); env steps {totals}; transport stats {stats}; actors on the arena "
+            f"{arena}, learner fetches {fetched}; SIGKILL of an actor: the same train() returned after "
+            f"{restart_s:.2f} s with attempts {sup.attempts}, {n_after} actors, the step count +{delta} (one "
+            f"iteration: {per_actor * n_after}); one more iteration to {r3['timesteps_total']} (arena {after}); "
+            f"learner step ms {[round(x, 2) for x in learner_ms]}; iteration s "
+            f"{[round(x['time_this_iter_s'], 3) for x in res + [r2, r3]]}")
+        if totals != [per_actor * spec.actors * (i + 1) for i in range(spec.sebulba_iters)] or not arena \
+                or not fetched:
+            raise AssertionError(f"rllib_podracer sebulba: steps {totals}, transport {stats}")
+        if where != device:
+            raise AssertionError(f"rllib_podracer sebulba: the learner runs on {where}, not {device}")
+        if sup.attempts != 1 or not 1 <= n_after <= spec.actors or delta != per_actor * n_after or not after \
+                or not r3["timesteps_total"] > r2["timesteps_total"] \
+                or not math.isfinite(r3["info"]["learner"]["total_loss"]):
+            raise AssertionError(f"rllib_podracer sebulba recovery: attempts {sup.attempts}, actors {n_after}, "
+                                 f"steps +{delta}, arena after {after}, {r3['timesteps_total']}")
+
+        # 4. The learner's update card vs CPU: two actors' fragments (CPU
+        # runners as the actors run them, from the learner's weights),
+        # concatenated as the learner does, the learner's state and the same
+        # permutations.
+        t_check = time.perf_counter()
+        frags = [EnvRunner(env_name="CartPole-v1", num_envs=spec.actor_envs, module=algo.module,
+                           rollout_len=spec.actor_rollout, seed=100 + i, device="cpu").sample(drv.get_weights())
+                 for i in range(spec.actors)]
+        batch = {k: np.concatenate([f[k] for f in frags], axis=0 if k == "last_obs" else 1)
+                 for k in frags[0] if not k.startswith("episode_")}
+        params, opt_state, _ = pickle.loads(drv.save_state())
+        _, update = algo._podracer_update_factory()
+        perms = update.perms(torch.Generator().manual_seed(4), spec.actors * per_actor)
+        outs = {}
+        for dev in (device, "cpu"):
+            outs[dev] = update.with_perms(to_device((params, opt_state), dev), to_device(batch, dev), perms.to(dev))
+        (p_dev, _), m_dev = outs[device]
+        (p_cpu, _), m_cpu = outs["cpu"]
+        e = _pair_errors(p_dev, p_cpu, m_dev, m_cpu)
+        log(f"rllib_podracer sebulba the learner's update card vs CPU (its state after the last iteration, "
+            f"{spec.actors} fragments, f32, TF32 off): {_pair_line(e)}; {time.perf_counter() - t_check:.1f} s")
+        if max(e["params"], e["metrics"]) > RL_TOL:
+            raise AssertionError(f"rllib_podracer sebulba card vs CPU: {e} (tol {RL_TOL})")
+        algo.stop()
+    finally:
+        left = _end_session(controller, session_dir)
+    if left:
+        raise AssertionError(f"rllib_podracer: processes outlived shutdown (killed): {left}")
+
+
 # ------------------------------------------------------------------ parallel
 MOE_TRAIN_SHAPE = (8, 1024)   # B, S of the gpt2-medium-moe step
 MOE_PARITY_SHAPE = (2, 128)
@@ -4297,10 +4686,11 @@ def device_events(prof, device_type) -> list:
     return out
 
 
-def _profile(label: str, fn):
+def _profile(label: str, fn, stats: dict | None = None):
     """Device busy time, idle share and the top kernels of one call of fn,
     from torch.profiler (the profiler's own overhead lengthens host time).
-    Returns the number of device events (None when none were recorded)."""
+    Returns the number of device events (None when none were recorded);
+    `stats`, when given, gets busy_ms, window_ms, idle and events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4325,6 +4715,8 @@ def _profile(label: str, fn):
             cur_e = max(cur_e, e0)
     busy += cur_e - cur_s
     window = spans[-1][1] - spans[0][0]
+    if stats is not None:
+        stats.update(busy_ms=busy / 1e3, window_ms=window / 1e3, idle=1 - busy / window, events=len(spans))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log(f"profile {label}: device busy {busy / 1e3:.1f} ms of a {window / 1e3:.1f} ms window "
         f"(idle share {1 - busy / window:.3f}), {len(spans)} device events")
@@ -5121,6 +5513,9 @@ def main(argv=None) -> int:
     if "rllib_dreamer" in phases:
         with wall("rllib_dreamer"):
             phase_rllib_dreamer(launches)
+    if "rllib_podracer" in phases:
+        with wall("rllib_podracer"):
+            phase_rllib_podracer(launches)
     if "parallel" in phases:
         with wall("parallel"):
             phase_parallel(launches)

@@ -14,8 +14,10 @@ the redesign of RLlib's new API stack: `rllib/core/learner/learner.py:95`,
 The port has PPO and multi-agent PPO with the env API, the runners,
 connectors, offline data and replay buffers, the discrete-action
 algorithms (IMPALA, DQN, APPO, BC, MARWIL, A2C, Ape-X DQN, CQL), SAC,
-TD3, DDPG, the Decision Transformer (DT) and DreamerV3; the podracer planes
-are not ported yet (ROADMAP queue 1).
+TD3, DDPG, the Decision Transformer (DT) and DreamerV3, and the podracer
+planes: Anakin (env dynamics and the update fused on one device, the
+rollout one CUDA graph) and Sebulba (a CPU actor gang feeding a learner
+over the block transport).
 """
 
 from .algorithms.algorithm import Algorithm
@@ -35,9 +37,10 @@ from .algorithms.cql import CQL, CQLConfig
 from .algorithms.dt import DT, DTConfig
 from .algorithms.multi_agent_ppo import MultiAgentPPO, MultiAgentPPOConfig
 from .algorithms.dreamerv3 import DreamerV3, DreamerV3Config
-# reference: `from . import podracer` (`ray_tpu/rllib/__init__.py:35`) is not ported yet.
+# reference: no `connectors` import here (`ray_tpu/rllib/__init__.py:34-35`); the port exports it.
 from . import connectors
 from . import offline
+from . import podracer
 from .env import register_env, make_env
 from .env.env_runner import EnvRunner
 from .env.multi_agent import MultiAgentEnv, SharedPolicyVectorEnv, make_multi_agent
@@ -76,9 +79,9 @@ __all__ = [
     "DreamerV3",
     "DreamerV3Config",
     "MultiAgentPPOConfig",
-    "connectors",
+    "connectors",  # reference: not in `__all__` (`:74-75`)
     "offline",
-    # reference: "podracer" (`:75`) is not ported yet.
+    "podracer",
     "register_env",
     "make_env",
     "EnvRunner",

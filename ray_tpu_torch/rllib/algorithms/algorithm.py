@@ -138,12 +138,16 @@ class Algorithm:
 
     # ------------------------------------------------------------ podracer
     def _build_podracer_plane(self):
-        # reference: builds AnakinDriver / SebulbaDriver
-        # (`ray_tpu/rllib/algorithms/algorithm.py:130-140`).
-        raise NotImplementedError(
-            f"podracer plane {self.config.podracer_plane!r}: the podracer planes "
-            "are not ported yet (ROADMAP queue 1 item 2, slice 4c)"
-        )
+        plane = self.config.podracer_plane
+        if plane == "anakin":
+            from ..podracer.anakin import AnakinDriver
+
+            return AnakinDriver(self)
+        if plane == "sebulba":
+            from ..podracer.sebulba import SebulbaDriver
+
+            return SebulbaDriver(self)
+        raise ValueError(f"Unknown podracer plane {plane!r}")
 
     def _podracer_update_factory(self, axis_name=None):
         """(opt, update_fn) for the podracer planes — algorithm-specific.

@@ -194,13 +194,24 @@ class AlgorithmConfig:
                 f"podracer plane must be 'anakin' or 'sebulba', got "
                 f"{self.podracer_plane!r}"
             )
-        # reference (`ray_tpu/rllib/algorithms/algorithm_config.py:189-204`):
-        # the Anakin and Sebulba planes' checks; the port has no podracer yet.
-        if self.podracer_plane is not None:
-            raise NotImplementedError(
-                f"podracer plane {self.podracer_plane!r}: the podracer planes are "
-                "not ported yet (ROADMAP queue 1 item 2, slice 4c)"
-            )
+        if self.podracer_plane == "anakin":
+            # reference: podracer.jax_env.jax_env_registered and its JaxEnv
+            # wording (`ray_tpu/rllib/algorithms/algorithm_config.py:190-197`).
+            from ..podracer.torch_env import torch_env_registered
+
+            if not torch_env_registered(self.env):
+                raise ValueError(
+                    f"Anakin needs a functional TorchEnv form of {self.env!r} "
+                    "(register one via podracer.torch_env.register_torch_env, or "
+                    "use the Sebulba plane for Python-loop envs)."
+                )
+        if self.podracer_plane == "sebulba":
+            if self.podracer_num_actors < 1:
+                raise ValueError("sebulba needs podracer_num_actors >= 1")
+            if self.podracer_min_actors > self.podracer_num_actors:
+                raise ValueError(
+                    "podracer_min_actors must be <= podracer_num_actors"
+                )
 
     def build(self) -> "Algorithm":  # noqa: F821
         if self.algo_class is None:

@@ -51,12 +51,14 @@ def make_ppo_update(module, opt, cfg: PPOConfig, axis_name: Optional[str] = None
     minibatch permutations ([num_epochs, num_minibatches, mb_size]).
 
     The reference's `axis_name` pmaps the update for the Anakin podracer
-    plane (gradients pmean'd across devices); the port has no podracer yet.
+    plane over devices (gradients pmean'd across them); the port's Anakin
+    runs on one device, and a pmean across cards is not ported.
     """
     if axis_name is not None:
         raise NotImplementedError(
-            "make_ppo_update(axis_name=) serves the podracer planes, which are "
-            "not ported yet (ROADMAP queue 1 item 2, slice 4c)"
+            "make_ppo_update(axis_name=): the update across several cards (a "
+            "pmean of the gradients) is not ported (ROADMAP queue 1 item 6); "
+            "the podracer planes run the update on one device"
         )
     gamma, lam = cfg.gamma, cfg.lambda_
     clip, vf_clip = cfg.clip_param, cfg.vf_clip_param
@@ -123,8 +125,8 @@ class PPO(Algorithm):
 
     def _podracer_update_factory(self, axis_name: Optional[str] = None):
         """PPO's update program for the podracer planes — the SAME
-        `make_ppo_update` the LearnerGroup path runs (podracer itself is
-        not ported yet: ROADMAP queue 1 item 2, slice 4c)."""
+        `make_ppo_update` the LearnerGroup path runs, handed to Anakin's
+        fused step on one device or to the Sebulba learner gang."""
         from ..utils.optim import make_optimizer
 
         cfg = self.config

@@ -194,11 +194,13 @@ def make_minibatch_update(step: Callable, num_epochs: int, minibatch_size: int,
                           prepare: Callable = None) -> Callable:
     """update(state, batch, gen) -> (state, metrics): `num_epochs` epochs of
     `step` over minibatches of min(minibatch_size, N) samples, one
-    permutation per epoch drawn from `gen`; and `update.with_perms(state,
-    batch, perms)`, the same update given the permutations. `prepare(state,
-    batch)`, when given, turns the batch into per-sample rows first, without
-    gradients (PPO's GAE); else the batch's rows are the samples. On the
-    card each minibatch step replays one CUDA graph (`step_program`)."""
+    permutation per epoch drawn from `gen`; `update.with_perms(state,
+    batch, perms)`, the same update given the permutations; and
+    `update.perms(gen, N)`, the permutations it draws for N samples.
+    `prepare(state, batch)`, when given, turns the batch into per-sample
+    rows first, without gradients (PPO's GAE); else the batch's rows are
+    the samples. On the card each minibatch step replays one CUDA graph
+    (`step_program`)."""
     program = step_program(lambda st, mb, _: step(st, mb))
 
     def samples(state, batch):
@@ -210,14 +212,16 @@ def make_minibatch_update(step: Callable, num_epochs: int, minibatch_size: int,
     def with_perms(state, batch, perms):
         return minibatch_sgd(program, state, samples(state, batch), perms)
 
+    def perms(gen, N):
+        mb_size = min(minibatch_size, N)
+        return minibatch_perms(gen, N, num_epochs, max(N // mb_size, 1), mb_size)
+
     def update(state, batch, gen):
         flat = samples(state, batch)
-        N = flat["obs"].shape[0]
-        mb_size = min(minibatch_size, N)
-        perms = minibatch_perms(gen, N, num_epochs, max(N // mb_size, 1), mb_size)
-        return minibatch_sgd(program, state, flat, perms)
+        return minibatch_sgd(program, state, flat, perms(gen, flat["obs"].shape[0]))
 
     update.with_perms = with_perms
+    update.perms = perms
     return update
 
 

@@ -526,3 +526,50 @@ def test_rllib_dreamer_phase_rehearsal_on_the_cpu():
         torch.set_num_threads(threads)
     assert set(launches["rllib_dreamer"]) == set(chip_smoke._kernels())
     assert not any(launches["rllib_dreamer"].values())
+
+
+def test_rllib_podracer_phase_is_right_after_rllib_dreamer():
+    assert chip_smoke.PHASES.index("rllib_podracer") == chip_smoke.PHASES.index("rllib_dreamer") + 1
+    # Its settings are the reference tests' own (tests/test_podracer_anakin.py:95-108,
+    # tests/test_podracer_sebulba.py:21-57).
+    spec = chip_smoke.RLlibPodracerSpec()
+    assert (spec.envs, spec.rollout, spec.minibatch, spec.epochs, spec.lr, spec.iters, spec.factor, spec.floor) == \
+        (64, 32, 512, 4, 2.5e-3, 15, 2.0, 50.0)
+    assert (spec.actors, spec.actor_envs, spec.actor_rollout, spec.sebulba_minibatch, spec.sebulba_epochs,
+            spec.sebulba_lr, spec.sebulba_iters, spec.wide_envs, spec.device) == (2, 32, 128, 2048, 2, 1e-3, 2, 4096,
+                                                                                  None)
+
+
+def test_rllib_podracer_phase_rehearsal_on_the_cpu():
+    """The rllib_podracer phase's control flow on the CPU at a small size
+    and a low floor (the learning bar runs on the card): Anakin's rollout
+    against itself eager, its bar, card vs CPU (both the CPU here), the
+    wide iteration; Sebulba booting its own cluster, its transport stats,
+    the SIGKILL, the update card vs CPU; 0 launches of each kernel."""
+    spec = chip_smoke.RLlibPodracerSpec(envs=16, rollout=16, minibatch=128, epochs=2, iters=4, factor=1.0,
+                                        floor=5.0, wide_envs=64, device="cpu")
+    launches = {}
+    chip_smoke.phase_rllib_podracer(launches, spec)
+    assert set(launches["rllib_podracer"]) == set(chip_smoke._kernels())
+    assert not any(launches["rllib_podracer"].values())
+
+
+def test_mpmd_draws_each_cpu_param_set_once(monkeypatch):
+    """Within `_cpu_params_drawn_once` a CPU draw of one (config, seed) is
+    made once and every call gets its tensors, bit for bit a fresh draw; a
+    draw from another seed or from a generator is not cached; the library's
+    `init_params` is back after the block."""
+    from ray_tpu_torch.models import gpt
+
+    cfg = chip_smoke._trainer_cfg(("llama-7b", {**TRAINER_LLAMA, "n_layers": 2}, (2, 16)))
+    fresh = gpt.init_params(cfg, seed=3, device="cpu")
+    draw, calls = gpt.init_params, []
+    monkeypatch.setattr(gpt, "init_params", lambda *a, **k: calls.append(a) or draw(*a, **k))
+    patched = gpt.init_params
+    with chip_smoke._cpu_params_drawn_once():
+        a = gpt.init_params(cfg, seed=3, device="cpu")
+        b = gpt.init_params(cfg, seed=3, device="cpu")
+        gpt.init_params(cfg, seed=4, device="cpu")
+        gpt.init_params(cfg, seed=torch.Generator().manual_seed(3), device="cpu")
+    assert gpt.init_params is patched and len(calls) == 3
+    assert all(a[k] is b[k] and torch.equal(b[k], fresh[k]) for k in fresh)

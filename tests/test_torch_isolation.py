@@ -131,7 +131,12 @@ RUNTIME_COPY = (
     # DreamerV3 (a port: PORTS; its fragment replay copied line for line,
     # tests/test_torch_rllib_dreamer.py).
     "rllib/algorithms/dreamerv3.py",
+    # The podracer planes: the trajectory transport copied, the torch env
+    # forms, Anakin and Sebulba ported (PORTS).
+    "rllib/podracer",
 )
+# Files the port names otherwise: its path -> the reference's.
+RENAMED = {"rllib/podracer/torch_env.py": "rllib/podracer/jax_env.py"}
 # Port-only files inside the copied directories.
 PORT_ONLY = {"core/devices.py", "core/host_names.py", "rllib/utils/tree.py"}
 # Copied files that diverge from the reference, and why.
@@ -186,9 +191,8 @@ DIVERGES = {
     "models/gbdt.py": "the booster on torch tensors on a device, a deterministic scatter-add (PORTS)",
     "train/gbdt_trainer.py": "a GPU worker by default; the loop fits on the worker's device; docstrings name "
                              "the torch booster",
-    "rllib/__init__.py": "exports what is ported (every algorithm, the env API, runners, connectors, "
-                         "offline, replay buffers; not podracer); docstring names the torch learner and "
-                         "runners",
+    "rllib/__init__.py": "exports connectors beside what the reference exports; docstring names the "
+                         "torch learner and runners and the port's podracer planes",
     "rllib/utils/optim.py": "a functional optimizer with optax's semantics in torch (PORTS)",
     "rllib/utils/gae.py": "the reverse scan as a loop over T in torch (PORTS)",
     "rllib/core/catalog.py": "encoders in torch: F.conv2d on NCHW with HWIO kernels, the LSTM scan as a loop "
@@ -199,12 +203,12 @@ DIVERGES = {
                              "mesh= raises (PORTS)",
     "rllib/env/env_runner.py": "the forward in torch on the runner's device, torch.Generator sampling (PORTS)",
     "rllib/env/ma_runner.py": "per-policy forwards in torch on the runner's device (PORTS)",
-    "rllib/algorithms/algorithm_config.py": "a device field set by resources(device=); the podracer planes "
-                                            "rejected until ported",
+    "rllib/algorithms/algorithm_config.py": "a device field set by resources(device=); Anakin checks for a "
+                                            "TorchEnv form (torch_env_registered)",
     "rllib/algorithms/algorithm.py": "the learner and local runner on config.device, remote runners CPU actors "
-                                     "on the CPU; the podracer planes raise",
-    "rllib/algorithms/ppo.py": "the update eager in torch, split into permutations and the update given them "
-                               "(PORTS)",
+                                     "on the CPU",
+    "rllib/algorithms/ppo.py": "the update eager in torch, split into permutations and the update given them; "
+                               "axis_name= (a pmean across cards) raises (PORTS)",
     "rllib/algorithms/multi_agent_ppo.py": "the learners and runners on config.device",
     "rllib/offline/__init__.py": "OfflineDataset carries rewards, next_obs and dones, and collect_dataset "
                                  "records them with transitions=True (the reference's CQL reads them, its "
@@ -234,6 +238,14 @@ DIVERGES = {
     "rllib/algorithms/dt.py": "the port's _block (no mesh, a 4-tuple) looped over layers and "
                               "init_params(cfg, seed); the time embedding clamped, its out-of-range rows "
                               "without gradient, as JAX's gather; evaluation on the learner's device (PORTS)",
+    "rllib/podracer/__init__.py": "the torch env forms' names (TorchEnv, make_torch_env, ...)",
+    "rllib/podracer/torch_env.py": "the jax_env forms in torch; reset_fn maps reset uniforms handed in, no key "
+                                   "(PORTS)",
+    "rllib/podracer/anakin.py": "the rollout one CUDA graph on the card, its draws (Gumbel or normal action "
+                                "noise, reset uniforms) and the update's permutations taken apart from it "
+                                "(with_draws); one device, more raise (PORTS)",
+    "rllib/podracer/sebulba.py": "CPU-actor EnvRunners; the learner's torch update on its device, a GPU worker "
+                                 "on the card; a state blob of CPU tensors and the generator's state (PORTS)",
 }
 # Diverging files that are ports, held by their structure, not line by line:
 # a class (its methods in the reference's order, its step()'s calls in
@@ -267,6 +279,14 @@ PORTS = {
     **{f"rllib/algorithms/{name}.py": {"module": [f"rllib/algorithms/{name}.py"]}
        for name in ("a2c", "impala", "appo", "dqn", "apex_dqn", "bc", "marwil", "cql", "sac", "td3", "dt",
                     "dreamerv3")},
+    "rllib/podracer/anakin.py": {"module": ["rllib/podracer/anakin.py"]},
+    "rllib/podracer/sebulba.py": {"module": ["rllib/podracer/sebulba.py"]},
+    "rllib/podracer/torch_env.py": {"module": ["rllib/podracer/jax_env.py"],
+                                    "renames": {"JaxEnv": "TorchEnv", "JaxCartPole": "TorchCartPole",
+                                                "JaxPendulum": "TorchPendulum",
+                                                "register_jax_env": "register_torch_env",
+                                                "make_jax_env": "make_torch_env",
+                                                "jax_env_registered": "torch_env_registered"}},
 }
 
 
@@ -279,11 +299,13 @@ def rewrite(text: str) -> str:
 
 def _copied():
     out = []
+    port_name = {ref: port for port, ref in RENAMED.items()}
     for entry in RUNTIME_COPY:
         ref = REF / entry
         files = sorted(f for f in ref.rglob("*") if f.is_file()) if ref.is_dir() else [ref]
-        out += [f.relative_to(REF).as_posix() for f in files
+        rels = [f.relative_to(REF).as_posix() for f in files
                 if "__pycache__" not in f.parts and "_build" not in f.parts]
+        out += [port_name.get(rel, rel) for rel in rels]
     return out
 
 
@@ -304,7 +326,7 @@ def test_every_runtime_file_is_copied_and_nothing_else_is_there():
 
 @pytest.mark.parametrize("rel", COPIED)
 def test_copy_does_not_drift(rel):
-    ref, port = (REF / rel).read_bytes(), (PORT / rel).read_bytes()
+    ref, port = (REF / RENAMED.get(rel, rel)).read_bytes(), (PORT / rel).read_bytes()
     if rel.endswith("_pb2.py") or rel.endswith(".proto"):
         assert port == ref, "generated protobuf and its source stay byte-identical"
         return
@@ -469,7 +491,9 @@ def test_importing_the_port_loads_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.rllib.algorithms.appo, ray_tpu_torch.rllib.algorithms.marwil\n"
         "import ray_tpu_torch.rllib.algorithms.sac, ray_tpu_torch.rllib.algorithms.td3\n"
         "import ray_tpu_torch.rllib.algorithms.ddpg, ray_tpu_torch.rllib.algorithms.dt\n"
-        "import ray_tpu_torch.rllib.algorithms.dreamerv3\n"
+        "import ray_tpu_torch.rllib.algorithms.dreamerv3, ray_tpu_torch.rllib.podracer.torch_env\n"
+        "import ray_tpu_torch.rllib.podracer.anakin, ray_tpu_torch.rllib.podracer.sebulba\n"
+        "import ray_tpu_torch.rllib.podracer.transport\n"
         "new = set(sys.modules) - before\n"
         f"print(sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}))\n"
     )
@@ -539,6 +563,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: DTConfig().environment("CartPole-v1").training(target_return=10.0).offline_data(episodes).build(),
         # DreamerV3: its learner and its local runner (the recurrent acting step).
         lambda: DreamerV3Config().environment("CartPole-v1").env_runners(num_env_runners=0).build(),
+        # The podracer planes: Anakin's fused step, Sebulba's learner (before any cluster boots).
+        *[lambda plane=plane: PPOConfig().environment("CartPole-v1").podracer(plane).build()
+          for plane in ("anakin", "sebulba")],
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

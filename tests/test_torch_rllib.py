@@ -335,10 +335,13 @@ def test_ppo_perms_tile_each_epoch():
 
 
 def test_podracer_and_mesh_paths_raise_until_ported():
-    with pytest.raises(NotImplementedError, match="4c"):
+    """The update across several cards (a pmean: Anakin over devices) and
+    the learner over a mesh raise; Anakin over more devices than there are
+    raises the reference's ValueError before it reaches the update."""
+    with pytest.raises(NotImplementedError, match="item 6"):
         ppo.make_ppo_update(rl_module.DiscretePolicyModule(4, 2), None, PPOConfig(), axis_name="d")
-    with pytest.raises(NotImplementedError, match="4c"):
-        PPOConfig().environment("CartPole-v1").podracer("anakin").build()
+    with pytest.raises(ValueError, match="available devices 1"):
+        PPOConfig().environment("CartPole-v1").podracer("anakin", num_devices=2).resources(device="cpu").build()
     from ray_tpu_torch.rllib.core.learner import Learner
 
     with pytest.raises(NotImplementedError, match="item 4"):
