@@ -138,6 +138,19 @@ Phases:
               with the step count continuous, one more iteration, the
               learner's update card vs CPU (build, learner step ms,
               restart s)
+  6f*. tune   Tune and workflows on the copied runtime (cluster mode, the
+              card): an ASHA sweep (max_t 6, grace 2, reduction 2) of 4 GPU
+              trials (lr 3e-4, 1e-3, 1e-5, 1e-6; 0.5 GPU each, 2 at a time),
+              each training llama-7b widths (2 layers, B=4 x S=512, bf16,
+              remat "attn", AdamW) on a pool of 2 seeded batches: every
+              report names the card, ASHA stops a trial early, the best trial
+              ran to max_t, every trial's losses equal the same steps in
+              process bit for bit; a durable workflow prompts (CPU) ->
+              generate (a num_gpus=1 task: greedy, B=2 x 64 prompt, 8 new)
+              -> finish, which fails once and is resumed: generate ran once,
+              its tokens equal the in-process greedy tokens (trial boot s,
+              step ms, the sweep's wall, ASHA's stops, the workflow's walls,
+              the GPU step's boot)
   6g. parallel the mesh path on a one-rank NCCL world (make_mesh(), all six
               axes 1): gpt2-medium-moe (8 experts, top-2) training at full
               width through make_train_step(mesh=) (tokens/s, step ms,
@@ -186,8 +199,8 @@ import types
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 PHASES = ("device", "build", "kernels", "parity", "train_parity", "train", "trainer", "mpmd", "data",
-          "gbdt", "rllib", "rllib_algos", "rllib_algos_ii", "rllib_dreamer", "rllib_podracer", "parallel", "generate",
-          "engine", "runtime", "serve")
+          "gbdt", "rllib", "rllib_algos", "rllib_algos_ii", "rllib_dreamer", "rllib_podracer", "tune", "parallel",
+          "generate", "engine", "runtime", "serve")
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, SXM
 H100_F32_FLOPS = 67e12     # CUDA-core f32 peak, SXM
 H100_BYTES_PER_S = 3.35e12
@@ -4320,6 +4333,322 @@ def _sebulba_checks(algo, spec: RLlibPodracerSpec, device: str, build_s: float, 
         raise AssertionError(f"rllib_podracer: processes outlived shutdown (killed): {left}")
 
 
+# ------------------------------------------------------------------ tune
+TUNE_TRIAL_RESOURCES = {"CPU": 1, "GPU": 0.5}  # two trials share the card
+
+
+@dataclasses.dataclass
+class TuneSpec:
+    """What the tune phase runs. The sweep: one trial per lr in `lrs`
+    through `Tuner` with ASHA (`max_t`, `grace`, `reduction`), `concurrent`
+    trials at a time, each placed with `TUNE_TRIAL_RESOURCES`; a trial trains
+    `model` (llama-7b widths, depth cut; bf16 compute, f32 master weights,
+    remat "attn", AdamW(lr, wd 0.1, bf16 mu)) from seed 0 on a pool of
+    batches in `_mpmd_batch`'s form from the seeds `pool`, cycled. The
+    workflow: `prompts` (a CPU task) -> `generate` (a `num_gpus=1` task;
+    the same model with params in its compute dtype, greedy, `prompt` =
+    (B, tokens), `new` new tokens) -> `finish` (fails its first execution),
+    then resumed. `device` None: the card; the CPU rehearsal
+    (tests/test_torch_chip_smoke.py) passes a tiny model, a cluster with
+    one advertised GPU and no card, the CPU as the trials' and the step's
+    device, and one torch thread (`threads`), so that the driver's and the
+    workers' CPU products agree bit for bit."""
+
+    model: tuple = ("llama-7b", {"n_layers": 2}, (4, 512))
+    lrs: tuple = (3e-4, 1e-3, 1e-5, 1e-6)
+    max_t: int = 6
+    grace: int = 2
+    reduction: int = 2
+    concurrent: int = 2
+    pool: tuple = (700, 701)
+    prompt: tuple = (2, 64)
+    new: int = 8
+    prompt_seed: int = 702
+    init: dict = dataclasses.field(default_factory=lambda: {"log_to_driver": False})
+    device: str | None = None
+    threads: int | None = None
+
+
+def _tune_fns(fixed: dict) -> dict:
+    """The tune phase's programs, closures so that cloudpickle ships them by
+    value (the workers import only ray_tpu_torch): `train(lr, report)`
+    trains `fixed["cfg"]` from seed 0 for
+    `fixed["steps"]` steps on the pool of batches, cycled, and reports each
+    step's loss, the card's name and the kernel launches of that step (the
+    counts set to 0 just before it and read just after); `trainable` is
+    `train` as a Tune function trainable; `prompts`, `generate` and
+    `finish` are the workflow's steps (`generate` counts its executions in
+    `fixed["counter"]`, `finish` fails while `fixed["flag"]` is absent and
+    creates it); `greedy(prompt)` is `generate` without the count. The
+    driver runs `train` and `greedy` in process for the values the workers
+    must repeat."""
+
+    def kernels():
+        from ray_tpu_torch.kernels.flash_bwd import flash_bwd_dkv, flash_bwd_dq
+        from ray_tpu_torch.kernels.flash_fwd import flash_fwd
+        from ray_tpu_torch.kernels.rmsnorm import rmsnorm_fwd
+
+        return {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv,
+                "rmsnorm": rmsnorm_fwd}
+
+    def setup():
+        """(device, card name, the process's age in s: its boot when called
+        first thing in a worker)."""
+        import os
+
+        import torch
+
+        with open("/proc/self/stat") as f:
+            started = int(f.read().rsplit(")", 1)[1].split()[19]) / os.sysconf("SC_CLK_TCK")
+        with open("/proc/uptime") as f:
+            age = float(f.read().split()[0]) - started
+        if fixed["threads"]:
+            torch.set_num_threads(fixed["threads"])
+        dev = torch.device(fixed["device"])
+        return dev, torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu", age
+
+    def counted(fn):
+        ks = kernels()
+        for k in ks.values():
+            k.launches = 0
+        out = fn()
+        return out, {n: k.launches for n, k in ks.items()}
+
+    def train(lr, report):
+        import os
+        import time
+
+        import torch
+
+        from ray_tpu_torch.models import gpt
+        from ray_tpu_torch.optim import AdamW
+
+        dev, card, age = setup()
+        cfg = fixed["cfg"]
+        params = gpt.init_params(cfg, seed=0, device=dev)
+        step = gpt.make_train_step(cfg, AdamW(params.values(), lr=lr, weight_decay=0.1, mu_dtype=torch.bfloat16))
+        pool = [{"tokens": torch.as_tensor(b).to(dev)} for b in fixed["pool"]]
+        for i in range(fixed["steps"]):
+            t0 = time.perf_counter()
+            (_, m), launches = counted(lambda: step(params, pool[i % len(pool)]))
+            loss = m["loss"].item()
+            report({"loss": loss, "lr": lr, "device_name": card, "launches": launches,
+                    "ms": (time.perf_counter() - t0) * 1e3, "pid": os.getpid(), "boot_s": age})
+        del params, step, pool
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def trainable(config):
+        from ray_tpu_torch import tune
+
+        train(config["lr"], tune.report)
+
+    def prompts():
+        import numpy as np
+
+        B, P = fixed["prompt"]
+        return np.random.default_rng(fixed["prompt_seed"]).integers(0, fixed["cfg"].vocab_size, (B, P))
+
+    def greedy(prompt):
+        import os
+        import time
+
+        import torch
+
+        from ray_tpu_torch.models import gpt
+
+        dev, card, age = setup()
+        cfg = fixed["cfg"]
+        t0 = time.perf_counter()
+        params = gpt.init_params(cfg, seed=0, device=dev, dtype=cfg.dtype)
+        gen = gpt.make_generate(cfg, fixed["new"])
+        t1 = time.perf_counter()
+        toks, launches = counted(lambda: gen(params, torch.as_tensor(prompt).to(dev)).cpu().numpy())
+        t2 = time.perf_counter()
+        del params, gen
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return {"tokens": toks, "launches": launches, "device_name": card, "pid": os.getpid(), "boot_s": age,
+                "build_s": t1 - t0, "generate_ms": (t2 - t1) * 1e3}
+
+    def generate(prompt):
+        with open(fixed["counter"], "ab") as f:
+            f.write(b"x")
+        return greedy(prompt)
+
+    def finish(out):
+        import os
+
+        if not os.path.exists(fixed["flag"]):
+            open(fixed["flag"], "w").close()
+            raise RuntimeError("finish: the first execution fails (no flag file yet)")
+        return out
+
+    return {"train": train, "trainable": trainable, "prompts": prompts, "greedy": greedy, "generate": generate,
+            "finish": finish}
+
+
+def phase_tune(launches: dict, spec: TuneSpec | None = None) -> None:
+    """Tune and workflows on the copied runtime, `ray_tpu_torch.init()` in
+    cluster mode with the card. An ASHA sweep of GPU trials: one function
+    trainable per lr (`TuneSpec`), placed with `num_gpus` from
+    `TUNE_TRIAL_RESOURCES`; every report names the card, ASHA stops a trial
+    before `max_t`, the best trial ran to `max_t`, and every trial's
+    recorded losses equal the same steps at its lr in process, bit for bit
+    (the driver's runs first, freed before the trials start). Then a
+    durable workflow `prompts` -> `generate` (a GPU task: greedy tokens) ->
+    `finish`, whose `finish` fails once: `workflow.resume` runs `finish`
+    alone, `generate` ran once, its tokens equal the driver's greedy tokens
+    exactly, and the workflow is SUCCESSFUL. Records the trials' boot s and
+    step ms, the sweep's wall, ASHA's stop iterations, the workflow's two
+    walls, the GPU step's boot and the phase wall."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune, workflow
+    from ray_tpu_torch.core import api
+    from ray_tpu_torch.train import RunConfig
+    from ray_tpu_torch.tune import ASHAScheduler, TuneConfig, Tuner
+
+    spec = spec or TuneSpec()
+    on_card = spec.device is None
+    device = "cuda" if on_card else spec.device
+    t_phase = time.perf_counter()
+    if spec.threads:
+        torch.set_num_threads(spec.threads)
+    cfg = _trainer_cfg(spec.model)
+    B, S = spec.model[2]
+    work = tempfile.mkdtemp(prefix="rtput-tune-")
+    fixed = {"cfg": cfg, "pool": [_mpmd_batch(cfg, (B, S), s) for s in spec.pool], "steps": spec.max_t,
+             "device": device, "threads": spec.threads, "prompt": spec.prompt, "prompt_seed": spec.prompt_seed,
+             "new": spec.new, "counter": os.path.join(work, "generate.count"), "flag": os.path.join(work, "finish.flag")}
+    fns = _tune_fns(fixed)
+    counts = {k: 0 for k in _kernels()}  # the launches of the trials' steps and of the workflow's GPU step
+    try:
+        # 1. The driver's runs, each freed before the next and all before the
+        # cluster starts: each lr's steps, and the greedy tokens.
+        t0 = time.perf_counter()
+        want = {}
+        for lr in spec.lrs:
+            losses = []
+            fns["train"](lr, lambda m: losses.append(m["loss"]))
+            want[lr] = losses
+        prompt = fns["prompts"]()
+        want_tokens = fns["greedy"](prompt)["tokens"]
+        if on_card:
+            torch.cuda.empty_cache()
+        log(f"tune in process: {len(spec.lrs)} lrs x {spec.max_t} steps and the greedy tokens in "
+            f"{time.perf_counter() - t0:.2f} s; losses by lr "
+            f"{ {lr: [round(x, 6) for x in ls] for lr, ls in want.items()} }")
+
+        t0 = time.perf_counter()
+        rt.init(**spec.init)
+        backend = api._global_runtime().backend
+        session_dir, controller = backend.session_dir, backend._controller_proc.pid
+        try:
+            log(f"tune: cluster up in {time.perf_counter() - t0:.2f} s, resources {rt.cluster_resources()}")
+
+            # 2. The sweep.
+            t0 = time.perf_counter()
+            results = Tuner(fns["trainable"], param_space={"lr": tune.grid_search(list(spec.lrs))},
+                            tune_config=TuneConfig(metric="loss", mode="min",
+                                                   scheduler=ASHAScheduler(max_t=spec.max_t,
+                                                                           grace_period=spec.grace,
+                                                                           reduction_factor=spec.reduction),
+                                                   max_concurrent_trials=spec.concurrent,
+                                                   trial_resources=dict(TUNE_TRIAL_RESOURCES)),
+                            run_config=RunConfig(storage_path=work, name="sweep")).fit()
+            sweep_s = time.perf_counter() - t0
+            if results.errors or len(results) != len(spec.lrs):
+                raise AssertionError(f"tune: {len(results)} trials of {len(spec.lrs)}, errors {results.errors}")
+            histories = {r.metrics_history[0]["lr"]: r.metrics_history for r in results}
+            card = torch.cuda.get_device_name(0) if on_card else "cpu"
+            per_step = mpmd_launches(cfg, 1, 1, 1, 1)
+            for lr, hist in histories.items():
+                names = {m["device_name"] for m in hist}
+                if names != {card}:
+                    raise AssertionError(f"tune: the trial at lr {lr} reported devices {names}, want {card}")
+                got = [m["loss"] for m in hist]
+                _check_equal(f"losses of the trial at lr {lr}", got, want[lr][:len(got)])
+                if on_card and any(m["launches"] != per_step for m in hist):
+                    raise AssertionError(f"tune: the trial at lr {lr} launched {[m['launches'] for m in hist]} "
+                                         f"per step, predicted {per_step}")
+                _sum_launches(counts, hist)
+            stops = {lr: len(h) for lr, h in histories.items()}
+            best_lr = results.get_best_result().metrics["lr"]
+            if not any(n < spec.max_t for n in stops.values()):
+                raise AssertionError(f"tune: ASHA stopped no trial before max_t {spec.max_t}: {stops}")
+            if stops[best_lr] != spec.max_t:
+                raise AssertionError(f"tune: the best trial (lr {best_lr}) stopped at {stops[best_lr]}, not max_t")
+            _check_equal(f"the best trial's losses (lr {best_lr})", [m["loss"] for m in histories[best_lr]],
+                         want[best_lr])
+            log(f"tune sweep {spec.model[0]} {spec.model[1]} B={B} S={S}, lrs {list(spec.lrs)}, ASHA(max_t "
+                f"{spec.max_t}, grace {spec.grace}, reduction {spec.reduction}), {spec.concurrent} at a time, "
+                f"trial_resources {TUNE_TRIAL_RESOURCES}: wall {sweep_s:.2f} s; every report on {card}; ASHA "
+                f"stopped at iterations {stops}; best lr {best_lr} ran to {spec.max_t}, its losses "
+                f"{want[best_lr][0]:.6f} -> {want[best_lr][-1]:.6f} equal the in-process run's bit for bit (and "
+                f"every trial's recorded steps theirs)")
+            for lr, hist in histories.items():
+                log(f"tune trial lr {lr}: pid {hist[0]['pid']}, boot {hist[0]['boot_s']:.2f} s (process start to "
+                    f"the trainable), step ms {[round(m['ms'], 1) for m in hist]}")
+
+            # 3. The workflow, failed once at `finish` and resumed.
+            workflow.init(os.path.join(work, "workflows"))
+            try:
+                wid = "tune_generate"
+                generate = rt.remote(num_gpus=1)(fns["generate"])
+                dag = rt.remote(fns["finish"]).bind(generate.bind(rt.remote(fns["prompts"]).bind()))
+                t0 = time.perf_counter()
+                try:
+                    workflow.run(dag, workflow_id=wid)
+                except Exception as e:  # noqa: BLE001 — the planned failure
+                    if "first execution fails" not in str(e):
+                        raise
+                else:
+                    raise AssertionError("tune: the workflow's finish step did not fail its first execution")
+                first_s = time.perf_counter() - t0
+                failed = workflow.get_status(wid)
+                t0 = time.perf_counter()
+                out = workflow.resume(wid)
+                resume_s = time.perf_counter() - t0
+                status = workflow.get_status(wid)
+            finally:
+                workflow.init(None)
+            runs = os.path.getsize(fixed["counter"])
+            if failed != "FAILED" or status != "SUCCESSFUL" or runs != 1:
+                raise AssertionError(f"tune workflow: status {failed} after the failure, {status} after the "
+                                     f"resume; generate ran {runs} times (want FAILED, SUCCESSFUL, 1)")
+            if out["device_name"] != card or not np.array_equal(out["tokens"], want_tokens):
+                raise AssertionError(f"tune workflow: tokens on {out['device_name']} differ from the in-process "
+                                     f"greedy tokens: {out['tokens'].tolist()} vs {want_tokens.tolist()}")
+            L, (Bp, P) = cfg.n_layers, spec.prompt
+            if on_card and out["launches"] != {"flash_fwd": L, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                                               "rmsnorm": (2 * L + 1) * spec.new}:
+                raise AssertionError(f"tune workflow: the generate step launched {out['launches']}")
+            _sum_launches(counts, [out])
+            log(f"tune workflow prompts -> generate (num_gpus=1; B={Bp} prompt={P} new={spec.new}) -> finish: "
+                f"the first run failed at finish after {first_s:.2f} s, the resume took {resume_s:.2f} s and ran "
+                f"finish alone (generate ran {runs} time); tokens equal the in-process greedy tokens exactly; "
+                f"the GPU step's boot {out['boot_s']:.2f} s (process start to the step), its model "
+                f"{out['build_s']:.2f} s, generate {out['generate_ms']:.1f} ms on {out['device_name']}; launches "
+                f"{out['launches']}")
+        finally:
+            left = _end_session(controller, session_dir)
+        if left:
+            raise AssertionError(f"tune: processes outlived shutdown (killed): {left}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches["tune"] = counts
+    log(f"tune launches (the trials' steps, the workflow's GPU step) {counts}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if on_card and not all(counts.get(k, 0) > 0 for k in _kernels()):
+        raise AssertionError(f"tune: a kernel of the path was not launched: {counts}")
+
+
 # ------------------------------------------------------------------ parallel
 MOE_TRAIN_SHAPE = (8, 1024)   # B, S of the gpt2-medium-moe step
 MOE_PARITY_SHAPE = (2, 128)
@@ -5516,6 +5845,9 @@ def main(argv=None) -> int:
     if "rllib_podracer" in phases:
         with wall("rllib_podracer"):
             phase_rllib_podracer(launches)
+    if "tune" in phases:
+        with wall("tune"):
+            phase_tune(launches)
     if "parallel" in phases:
         with wall("parallel"):
             phase_parallel(launches)

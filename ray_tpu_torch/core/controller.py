@@ -1246,7 +1246,12 @@ class Controller:
                 self._schedule()
                 return
         if (
-            not tpu and isolation is None
+            # GPU workers fork too: the template imported torch without
+            # touching CUDA, and the child is given its cards in its env
+            # before its first CUDA call (`import torch` alone took ~10 s a
+            # cold interpreter on the H100 host). (reference: `not tpu and
+            # isolation is None`, TPU workers cold, ray_tpu/core/controller.py:1252)
+            isolation is None
             and self._forkserver is not None and self._forkserver.usable
         ):
             # Warm path: ~10 ms fork from the pre-imported template. Fork

@@ -2,8 +2,9 @@
 
 The runtime keeps one accelerator worker kind (the reference's TPU worker,
 `ray_tpu/core/controller.py:1224-1236`): tasks and actors that demand
-`ACCELERATOR` run in cold-spawned workers, never forked from the template,
-that see the node's cards. Every other worker, and the forkserver template,
+`ACCELERATOR` run in workers that see the node's cards (forked from the
+template, which imported torch without touching CUDA, or cold-spawned
+while it is not ready). Every other worker, and the forkserver template,
 sees none. This module imports nothing of the runtime, so the controller,
 the node agents and the template can all use it.
 """

@@ -21,9 +21,12 @@ Design constraints:
     after that can hang — and never initialises CUDA (a CUDA context does
     not survive fork). `TEMPLATE_REPORT` (also in the template's log) says
     what held when the template began to serve; forked children inherit it.
-  * GPU workers do NOT fork from the template: the template sees no card
-    (`CUDA_VISIBLE_DEVICES=""`, like every CPU worker). GPU workers keep
-    the cold Popen path — at most one booting per node.
+  * GPU workers fork from the template too. The template sees no card
+    (`CUDA_VISIBLE_DEVICES=""`, like every CPU worker) and never calls
+    into CUDA, so the CUDA driver reads a child's `CUDA_VISIBLE_DEVICES` (its
+    cards, set from the spawn request's env) at the child's first CUDA
+    call. A fork saves the child `import torch` (~10 s a cold interpreter
+    on the H100 host). At most one GPU worker boots per node.
   (reference: a single-threaded jax template and cold TPU workers,
   ray_tpu/core/forkserver.py:13-20)
   * Children are auto-reaped (SIGCHLD ignored in the template); callers
@@ -160,7 +163,7 @@ class ForkServerClient:
         env["RAY_TPU_FORK_CWD"] = os.getcwd()
         env["PYTHONUNBUFFERED"] = "1"
         # CPU pin — same as cold CPU-worker spawns: the template sees no card
-        # (workers that need one spawn cold).
+        # (a GPU worker forked from it is given its cards in its spawn env).
         # (reference: TPU plugin env, ray_tpu/core/forkserver.py:152-157)
         env["RAY_TPU_WORKER_TPU"] = "0"
         pin_worker_devices(env, False, 0)

@@ -514,7 +514,9 @@ class NodeAgent:
             )
 
         fs = getattr(self, "_forkserver", None)
-        if not tpu and isolation is None and fs is not None and fs.usable:
+        # GPU workers fork too (see the controller's _spawn_worker).
+        # (reference: `not tpu and ...`, TPU workers cold, ray_tpu/core/node_agent.py:520)
+        if isolation is None and fs is not None and fs.usable:
             # Async + batched, off the event loop (see ForkServerClient.
             # spawn_async); failed trips recover via spawn-ledger expiry.
             fs.spawn_async(

@@ -573,3 +573,34 @@ def test_mpmd_draws_each_cpu_param_set_once(monkeypatch):
         gpt.init_params(cfg, seed=torch.Generator().manual_seed(3), device="cpu")
     assert gpt.init_params is patched and len(calls) == 3
     assert all(a[k] is b[k] and torch.equal(b[k], fresh[k]) for k in fresh)
+
+
+def test_tune_phase_is_right_after_rllib_podracer():
+    assert chip_smoke.PHASES.index("tune") == chip_smoke.PHASES.index("rllib_podracer") + 1
+    spec = chip_smoke.TuneSpec()
+    assert (spec.model, spec.lrs, spec.max_t, spec.grace, spec.reduction, spec.concurrent, chip_smoke.TUNE_TRIAL_RESOURCES,
+            spec.prompt, spec.new, spec.device) == \
+        (("llama-7b", {"n_layers": 2}, (4, 512)), (3e-4, 1e-3, 1e-5, 1e-6), 6, 2, 2, 2, {"CPU": 1, "GPU": 0.5},
+         (2, 64), 8, None)
+
+
+def test_tune_phase_rehearsal_on_the_cpu():
+    """The tune phase's control flow on the CPU with a tiny model in a
+    cluster with one advertised GPU and no card (the trials at half of it
+    and the generate step on all of it, each computing on the CPU), one
+    torch thread: ASHA stops a trial
+    before max_t, the best trial ran to max_t with the in-process losses
+    bit for bit, and the resumed workflow ran generate once with the
+    in-process greedy tokens; 0 launches of each kernel (their plain
+    versions run on the CPU)."""
+    spec = chip_smoke.TuneSpec(
+        model=("llama-7b", {**TINY, "attn_impl": "flash", "remat": True, "remat_policy": "attn", "max_seq": 32},
+               (2, 16)),
+        prompt=(2, 8), new=4, init={"num_cpus": 4, "num_gpus": 1}, device="cpu", threads=1)
+    threads = torch.get_num_threads()
+    launches = {}
+    try:
+        chip_smoke.phase_tune(launches, spec)
+    finally:
+        torch.set_num_threads(threads)
+    assert set(launches["tune"]) == set(chip_smoke._kernels()) and not any(launches["tune"].values())

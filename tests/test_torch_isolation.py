@@ -134,6 +134,11 @@ RUNTIME_COPY = (
     # The podracer planes: the trajectory transport copied, the torch env
     # forms, Anakin and Sebulba ported (PORTS).
     "rllib/podracer",
+    # Tune, durable workflows and the host tools: the ops CLI, job
+    # submission, the multiprocessing Pool and the joblib backend.
+    "tune/search_space.py", "tune/schedulers.py", "tune/search.py", "tune/tuner.py", "tune/__init__.py",
+    "workflow/storage.py", "workflow/executor.py", "workflow/event_listener.py", "workflow/__init__.py",
+    "scripts/__init__.py", "scripts/cli.py", "job_submission.py", "util/multiprocessing.py", "util/joblib.py",
 )
 # Files the port names otherwise: its path -> the reference's.
 RENAMED = {"rllib/podracer/torch_env.py": "rllib/podracer/jax_env.py"}
@@ -142,10 +147,11 @@ PORT_ONLY = {"core/devices.py", "core/host_names.py", "rllib/utils/tree.py"}
 # Copied files that diverge from the reference, and why.
 DIVERGES = {
     "core/api.py": "init(num_gpus=...) sets the GPU resource",
-    "core/controller.py": "GPU worker kind: resource key, device pinning, GPU lease spawns",
+    "core/controller.py": "GPU worker kind: resource key, device pinning, GPU lease spawns; GPU workers forked "
+                          "from the template too",
     "core/direct.py": "GPU worker kind: resource key of a lease",
-    "core/node_agent.py": "GPU worker kind: device pinning",
-    "core/forkserver.py": "template pre-imports torch, no card; reports its state",
+    "core/node_agent.py": "GPU worker kind: device pinning; GPU workers forked from the template too",
+    "core/forkserver.py": "template pre-imports torch, no card; reports its state; GPU workers fork from it too",
     "core/exceptions.py": "an error that crossed two tasks unpickles",
     "core/cluster_backend.py": "session root under TMPDIR (host_names.SESSION_ROOT)",
     "core/rpc.py": "session root under TMPDIR (host_names.SESSION_ROOT)",
@@ -246,6 +252,13 @@ DIVERGES = {
                                 "(with_draws); one device, more raise (PORTS)",
     "rllib/podracer/sebulba.py": "CPU-actor EnvRunners; the learner's torch update on its device, a GPU worker "
                                  "on the card; a state blob of CPU tensors and the generator's state (PORTS)",
+    "tune/tuner.py": "a trial's GPU share is placed with num_gpus= (the reference places its TPU share with "
+                     "num_tpus=)",
+    "workflow/storage.py": "the default root under TMPDIR, beside the sessions (host_names.SESSION_ROOT)",
+    "workflow/__init__.py": "docstring: init()'s default root under TMPDIR",
+    "scripts/cli.py": "session_latest under TMPDIR (host_names.SESSION_ROOT): the address, its error text, the "
+                      "docstring",
+    "job_submission.py": "session_latest under TMPDIR (host_names.SESSION_ROOT)",
 }
 # Diverging files that are ports, held by their structure, not line by line:
 # a class (its methods in the reference's order, its step()'s calls in
@@ -494,8 +507,12 @@ def test_importing_the_port_loads_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.rllib.algorithms.dreamerv3, ray_tpu_torch.rllib.podracer.torch_env\n"
         "import ray_tpu_torch.rllib.podracer.anakin, ray_tpu_torch.rllib.podracer.sebulba\n"
         "import ray_tpu_torch.rllib.podracer.transport\n"
+        "import ray_tpu_torch.tune, ray_tpu_torch.workflow, ray_tpu_torch.scripts.cli\n"
+        "import ray_tpu_torch.job_submission, ray_tpu_torch.util, ray_tpu_torch.util.multiprocessing\n"
         "new = set(sys.modules) - before\n"
-        f"print(sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}))\n"
+        # joblib is imported only by its backend's module, on request.
+        f"print(sorted(m for m in new if m.split('.')[0] in {FORBIDDEN + ('joblib',)!r}\n"
+        "             or m == 'ray_tpu_torch.util.joblib'))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)

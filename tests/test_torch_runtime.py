@@ -3,8 +3,9 @@
 `test_dag.py`: objects, tasks, actors, `wait`, errors and a compiled DAG,
 in local mode and in cluster mode (processes); and, in cluster mode, the
 GPU-worker plumbing without a card: `init(num_gpus=1)` advertises a GPU, a
-`num_gpus=1` task runs in a cold-spawned worker that is given the card,
-every other worker is forked from the template and given none.
+`num_gpus=1` task runs in a worker forked from the template (which imported
+torch without touching CUDA) and given the card, every other worker is
+forked from it and given none.
 
 One runtime per mode for the whole module (the fixtures are here, not in
 `tests/conftest.py`, which belongs to the reference)."""
@@ -81,6 +82,7 @@ def worker_probe():
     from ray_tpu_torch.core import forkserver
 
     return {
+        "pid": os.getpid(),
         "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
         "cuda_available": torch.cuda.is_available(),
         "session_dir": os.environ.get("RAY_TPU_SESSION_DIR"),
@@ -95,6 +97,7 @@ def gpu_probe():
     from ray_tpu_torch.core import forkserver
 
     return {
+        "pid": os.getpid(),
         "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
         "accelerator_worker": os.environ.get("RAY_TPU_WORKER_TPU"),
         "template": dict(forkserver.TEMPLATE_REPORT),
@@ -176,6 +179,6 @@ def test_gpu_resource_and_worker_kinds(mode):
                                "threads": cpu["template"]["threads"]}
     assert not cpu["jax"] and cpu["reference"] == []
     assert cpu["session_dir"].startswith(os.path.join(SESSION_ROOT, "session_"))
-    # The GPU worker: cold-spawned (not forked: no template report), given the card.
+    # The GPU worker: forked from the same template (CUDA untouched there), given the card.
     assert gpu["cuda_visible_devices"] == "0" and gpu["accelerator_worker"] == "1"
-    assert gpu["template"] == {}
+    assert gpu["template"] == cpu["template"] and gpu["pid"] != cpu["pid"]
