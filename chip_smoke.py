@@ -151,6 +151,18 @@ Phases:
               its tokens equal the in-process greedy tokens (trial boot s,
               step ms, the sweep's wall, ASHA's stops, the workflow's walls,
               the GPU step's boot)
+  6f**. autoscaler the autoscaler on a head-only cluster of one CPU (no GPU)
+              through FakeMultiNodeProvider, types cpu {CPU: 4} (max 2) and
+              gpu {CPU: 2, GPU: 1} (max 1), at most 3 workers, idle timeout
+              2 s; the head's CPU held by an actor: a lone CPU task launches
+              exactly one cpu node and runs there; a num_gpus=1 task (tune's
+              model: greedy, B=2 x 64 prompt, 8 new) launches exactly one gpu
+              node (a second update() launches nothing) and runs there on the
+              card, its tokens equal the in-process ones exactly; both nodes
+              scale down, the card's memory comes back and no process of the
+              session is left (each update's launches, queue to launch,
+              launch to registration, the GPU worker's boot, build and
+              generate, queue to result, idle to terminated)
   6g. parallel the mesh path on a one-rank NCCL world (make_mesh(), all six
               axes 1): gpt2-medium-moe (8 experts, top-2) training at full
               width through make_train_step(mesh=) (tokens/s, step ms,
@@ -199,7 +211,8 @@ import types
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 PHASES = ("device", "build", "kernels", "parity", "train_parity", "train", "trainer", "mpmd", "data",
-          "gbdt", "rllib", "rllib_algos", "rllib_algos_ii", "rllib_dreamer", "rllib_podracer", "tune", "parallel",
+          "gbdt", "rllib", "rllib_algos", "rllib_algos_ii", "rllib_dreamer", "rllib_podracer", "tune", "autoscaler",
+          "parallel",
           "generate", "engine", "runtime", "serve")
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, SXM
 H100_F32_FLOPS = 67e12     # CUDA-core f32 peak, SXM
@@ -1816,7 +1829,7 @@ def _wait_card_released(free_before, what: str) -> None:
         time.sleep(0.25)
     free = torch.cuda.mem_get_info()[0]
     if free < free_before - MEMORY_RELEASE_SLACK:
-        raise AssertionError(f"mpmd {what}: the card's memory was not released ({free / 2**30:.2f} GiB free, "
+        raise AssertionError(f"{what}: the card's memory was not released ({free / 2**30:.2f} GiB free, "
                              f"{free_before / 2**30:.2f} before)")
 
 
@@ -1921,7 +1934,7 @@ def _phase_mpmd(launches: dict, gpipe: dict | None, spec: MPMDSpec) -> None:
                             scheduled=True, dp=1, num_microbatches=M, num_chunks=chunks, zero=True,
                             num_gpus_per_replica=1.0 / S)
             runs[name] = res
-            _wait_card_released(free_before, f"pipe {name}")
+            _wait_card_released(free_before, f"mpmd pipe {name}")
         B, Sq = spec.pipe[2]
         for name, res in runs.items():
             chunks = v if name == f"v{v}" else 1
@@ -1978,7 +1991,7 @@ def _phase_mpmd(launches: dict, gpipe: dict | None, spec: MPMDSpec) -> None:
                       num_gpus_per_replica=1.0 / (S * D))
         plain = _mpmd_fit(kcfg, spec, storage, "zero-off", spec.kill, seed=9, batch_seed=300, steps=spec.kill_steps,
                           zero=False, **common)
-        _wait_card_released(free_before, "zero-off")
+        _wait_card_released(free_before, "mpmd zero-off")
         _mpmd_sum(counts, plain["history"])
         want_losses = [h["loss"] for h in plain["history"]]
         known = _descendants(controller)
@@ -2005,7 +2018,7 @@ def _phase_mpmd(launches: dict, gpipe: dict | None, spec: MPMDSpec) -> None:
 
         res = _mpmd_fit(kcfg, spec, storage, "zero-kill", spec.kill, seed=9, batch_seed=300, steps=spec.kill_steps,
                         batch_hook=kill_hook, holder=holder, zero=True, ckpt_every=spec.ckpt_every, **common)
-        _wait_card_released(free_before, "zero-kill")
+        _wait_card_released(free_before, "mpmd zero-kill")
         hist = res["history"]
         _mpmd_sum(counts, hist)
         sup = holder["trainer"]._supervisor
@@ -4649,6 +4662,247 @@ def phase_tune(launches: dict, spec: TuneSpec | None = None) -> None:
         raise AssertionError(f"tune: a kernel of the path was not launched: {counts}")
 
 
+# ------------------------------------------------------------------ autoscaler
+@dataclasses.dataclass
+class AutoscalerSpec:
+    """What the autoscaler phase runs: a head-only cluster of `head_cpus`
+    CPUs and no GPU, a `StandardAutoscaler` over `FakeMultiNodeProvider`
+    with `node_types`, `max_workers` and `idle_timeout_s`; each wait for a
+    launch, a task's result or the scale-down has `deadline_s`. The GPU
+    task is the tune workflow's generate step (`_tune_fns`' `greedy` on its
+    `prompts`: `model`, `prompt`, `prompt_seed`, `new`). `device` None: the
+    card; the CPU rehearsal (tests/test_torch_chip_smoke.py) passes a tiny
+    model, the CPU as the task's device and one torch thread (`threads`),
+    and its `gpu` type advertises a GPU with no card behind it."""
+
+    model: tuple = TuneSpec.model
+    prompt: tuple = TuneSpec.prompt
+    new: int = TuneSpec.new
+    prompt_seed: int = TuneSpec.prompt_seed
+    head_cpus: int = 1
+    node_types: dict = dataclasses.field(default_factory=lambda: {
+        "cpu": {"resources": {"CPU": 4}, "min_workers": 0, "max_workers": 2},
+        "gpu": {"resources": {"CPU": 2, "GPU": 1}, "min_workers": 0, "max_workers": 1}})
+    max_workers: int = 3
+    idle_timeout_s: float = 2.0
+    deadline_s: float = 60.0
+    device: str | None = None
+    threads: int | None = None
+
+
+def _poll(what: str, fn, deadline_s: float, every: float = 0.1):
+    """Call `fn()` until it returns a true value; that value, or raise."""
+    deadline = time.monotonic() + deadline_s
+    while True:
+        out = fn()
+        if out:
+            return out
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: not within {deadline_s} s")
+        time.sleep(every)
+
+
+def phase_autoscaler(launches: dict, spec: AutoscalerSpec | None = None) -> None:
+    """The autoscaler (`ray_tpu_torch.autoscaler`) on a head-only cluster
+    with no GPU (`AutoscalerSpec`). The driver first computes the GPU
+    task's greedy tokens in process and frees the card. An actor holds the
+    head's CPU; a lone `num_cpus=1` task must launch exactly one `cpu` node
+    and run there. Then a `num_gpus=1` task, the tune workflow's generate
+    step, must launch exactly one `gpu` node (a second update() launches
+    nothing), run there on the card and return the in-process tokens
+    exactly, with flash forward launched L times and RMSNorm (2L+1)·new.
+    Then both nodes must scale down: their processes end (the GPU worker
+    too), the card's memory comes back, and no process of the session is
+    left after shutdown. Records each update()'s launches, queue to launch,
+    launch to registration, the GPU worker's boot, model build and generate,
+    queue to result, idle to terminated and the phase wall."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import FakeMultiNodeProvider, StandardAutoscaler
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core import api
+
+    spec = spec or AutoscalerSpec()
+    on_card = spec.device is None
+    device = "cuda" if on_card else spec.device
+    t_phase = time.perf_counter()
+    if spec.threads:
+        torch.set_num_threads(spec.threads)
+    cfg = _trainer_cfg(spec.model)
+    fns = _tune_fns({"cfg": cfg, "device": device, "threads": spec.threads, "prompt": spec.prompt,
+                     "prompt_seed": spec.prompt_seed, "new": spec.new})
+    greedy, prompts = fns["greedy"], fns["prompts"]
+
+    # 1. The driver's tokens, then the card freed before the cluster starts.
+    t0 = time.perf_counter()
+    want = greedy(prompts())
+    free_before = None
+    if on_card:
+        torch.cuda.empty_cache()
+        free_before = torch.cuda.mem_get_info()[0]
+    log(f"autoscaler in process: {spec.model[0]} {spec.model[1]} greedy B={spec.prompt[0]} prompt={spec.prompt[1]} "
+        f"new={spec.new} in {time.perf_counter() - t0:.2f} s")
+
+    def located():
+        """The node the task ran on (runs in the task's worker)."""
+        import ray_tpu_torch
+
+        return ray_tpu_torch.get_runtime_context().get_node_id()
+
+    def generate():
+        """The tune workflow's generate step, where it ran, and whether its
+        worker was forked from the node's template (else spawned cold)."""
+        from ray_tpu_torch.core import forkserver
+
+        return {**greedy(prompts()), "node": located(), "forked": bool(forkserver.TEMPLATE_REPORT)}
+
+    class TimedProvider(FakeMultiNodeProvider):
+        """Stamps each launch (start, end, ids) and each termination."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.created, self.terminated = [], {}
+
+        def create_node(self, node_config, tags, count):
+            t = time.perf_counter()
+            ids = super().create_node(node_config, tags, count)
+            self.created.append((t, time.perf_counter(), ids))
+            return ids
+
+        def terminate_node(self, node_id):
+            super().terminate_node(node_id)
+            self.terminated.setdefault(node_id, time.perf_counter())
+
+    t0 = time.perf_counter()
+    cluster = Cluster(initialize_head=True, head_node_args={"num_cpus": spec.head_cpus})
+    provider = None
+    known: dict = {}
+    try:
+        rt.init(address=cluster.address, log_to_driver=False)
+        backend = api._global_runtime().backend
+        provider = TimedProvider({"address": cluster.address, "session_dir": cluster.session_dir})
+        autoscaler = StandardAutoscaler({"available_node_types": spec.node_types, "max_workers": spec.max_workers,
+                                         "idle_timeout_s": spec.idle_timeout_s}, provider, backend)
+        updates = []  # (step, what each update() launched)
+
+        def update(step: str) -> dict:
+            out = autoscaler.update()
+            updates.append((step, out))
+            return out
+
+        def registered() -> set:
+            nodes = backend._request({"type": "load_metrics"})["nodes"]
+            return {n["node_id"] for n in nodes if n["alive"] and not n["is_head"]}
+
+        def scale_up(step: str, ref_fn, want_launch: dict):
+            """Queue the task, update() until it launches; (ref, node id,
+            queue time, launch stamps, registration time, whether the node
+            was registered at the second update())."""
+            t_queue = time.perf_counter()
+            ref = ref_fn()
+            launched = _poll(f"autoscaler {step}: a launch", lambda: update(step), spec.deadline_s)
+            if launched != want_launch:
+                raise AssertionError(f"autoscaler {step}: launched {launched}, want {want_launch}")
+            start, end, ids = provider.created[-1]
+            (node,) = ids
+            t_reg = _poll(f"autoscaler {step}: {node} registered",
+                          lambda: node in registered() and time.perf_counter(), spec.deadline_s, every=0.02)
+            reg_at_second = node in registered()
+            again = update(f"{step} again")
+            if again != {}:
+                raise AssertionError(f"autoscaler {step}: a second update() launched {again}")
+            return ref, node, t_queue, (start, end), t_reg, reg_at_second
+
+        log(f"autoscaler: head-only cluster of {spec.head_cpus} CPU up in {time.perf_counter() - t0:.2f} s, "
+            f"resources {rt.cluster_resources()}; node types {spec.node_types}, max_workers {spec.max_workers}, "
+            f"idle timeout {spec.idle_timeout_s} s")
+
+        class Holder:
+            """Holds the head's CPUs, so that a CPU task waits for a node."""
+
+            def node(self):
+                return located()
+
+        holder = rt.remote(num_cpus=spec.head_cpus)(Holder).remote()
+        head = rt.get(holder.node.remote(), timeout=spec.deadline_s)
+        try:
+            # 2. A lone CPU task launches one cpu node and runs there.
+            ref, cpu_node, t_queue, (l0, l1), t_reg, reg2 = scale_up(
+                "cpu", lambda: rt.remote(num_cpus=1)(located).remote(), {"cpu": 1})
+            got = rt.get(ref, timeout=spec.deadline_s)
+            t_cpu_done = time.perf_counter()
+            if got != cpu_node or got == head:
+                raise AssertionError(f"autoscaler cpu: the task ran on {got}, not on the launched {cpu_node}")
+            log(f"autoscaler cpu task: launched {{'cpu': 1}} = {cpu_node}; queue to launch {l0 - t_queue:.2f} s, "
+                f"launch to registration {t_reg - l0:.2f} s (create_node returned after {l1 - l0:.2f} s), "
+                f"registered at the second update(): {reg2}; queue to result {t_cpu_done - t_queue:.2f} s on "
+                f"{got}")
+
+            # 3. A GPU task launches the gpu node and computes the tokens there.
+            ref, gpu_node, t_queue, (l0, l1), t_reg, reg2 = scale_up(
+                "gpu", lambda: rt.remote(num_gpus=1)(generate).remote(), {"gpu": 1})
+            out = rt.get(ref, timeout=max(spec.deadline_s, 300.0))
+            t_gpu_done = time.perf_counter()
+            for info in provider._nodes.values():  # the node agents and their workers, while alive
+                known.update(_descendants(info["proc"].pid))
+        finally:
+            rt.kill(holder)
+        card = torch.cuda.get_device_name(0) if on_card else "cpu"
+        if out["node"] != gpu_node:
+            raise AssertionError(f"autoscaler gpu: the task ran on {out['node']}, not on the launched {gpu_node}")
+        if out["device_name"] != card or not np.array_equal(out["tokens"], want["tokens"]):
+            raise AssertionError(f"autoscaler gpu: tokens on {out['device_name']} differ from the in-process "
+                                 f"greedy tokens: {out['tokens'].tolist()} vs {want['tokens'].tolist()}")
+        L = cfg.n_layers
+        predicted = {"flash_fwd": L, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "rmsnorm": (2 * L + 1) * spec.new}
+        if on_card and out["launches"] != predicted:
+            raise AssertionError(f"autoscaler gpu: the task launched {out['launches']}, predicted {predicted}")
+        log(f"autoscaler gpu task (num_gpus=1; B={spec.prompt[0]} prompt={spec.prompt[1]} new={spec.new}): launched "
+            f"{{'gpu': 1}} = {gpu_node}; queue to launch {l0 - t_queue:.2f} s, launch to registration "
+            f"{t_reg - l0:.2f} s (create_node returned after {l1 - l0:.2f} s), registered at the second update(): "
+            f"{reg2}; the worker's boot {out['boot_s']:.2f} s (process start to the task; "
+            f"{'forked from the node template' if out['forked'] else 'cold: the node template was not ready'}), "
+            f"model {out['build_s']:.2f} s, generate {out['generate_ms']:.1f} ms "
+            f"on {out['device_name']}; queue to result {t_gpu_done - t_queue:.2f} s; tokens equal the in-process "
+            f"greedy tokens exactly; launches {out['launches']}")
+
+        # 4. Both nodes scale down; their processes end with them.
+        t_idle = time.perf_counter()
+
+        def scaled_down() -> bool:
+            if update("down"):
+                raise AssertionError(f"autoscaler: the scale-down launched {updates[-1][1]}")
+            return not provider.non_terminated_nodes({})
+
+        _poll("autoscaler: both nodes scaled down", scaled_down, spec.deadline_s, every=0.25)
+        _poll("autoscaler: the head sees both nodes gone", lambda: not registered(), spec.deadline_s)
+        worker = _proc_stat(out["pid"])
+        if worker is not None and worker[2] != "Z":
+            raise AssertionError(f"autoscaler: the GPU task's worker {out['pid']} outlived its node")
+        _wait_card_released(free_before, "autoscaler scale-down")
+        idle = {n: provider.terminated[n] - t for n, t in ((cpu_node, t_cpu_done), (gpu_node, t_gpu_done))}
+        log(f"autoscaler scale-down: both nodes terminated {time.perf_counter() - t_idle:.2f} s after the GPU "
+            f"task's result; idle to terminated (from each node's last result) "
+            f"{ {n: round(s, 2) for n, s in idle.items()} }; the GPU worker {out['pid']} ended; the card's memory "
+            f"came back" + ("" if on_card else " (no card)"))
+        log(f"autoscaler update() launches in order: {[(s, u) for s, u in updates if u]} in {len(updates)} calls "
+            f"({sum(1 for _, u in updates if not u)} launched nothing)")
+    finally:
+        if provider is not None:
+            provider.shutdown()
+        left = _end_session(cluster.head_proc.pid, cluster.session_dir,
+                            before_shutdown=lambda: (rt.shutdown(), cluster.shutdown()), known=known)
+    if left:
+        raise AssertionError(f"autoscaler: processes outlived shutdown (killed): {left}")
+    counts = {k: out["launches"].get(k, 0) for k in _kernels()}
+    launches["autoscaler"] = counts
+    log(f"autoscaler launches (the GPU task) {counts}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    if on_card and not (counts["flash_fwd"] > 0 and counts["rmsnorm"] > 0):
+        raise AssertionError(f"autoscaler: a kernel of the path was not launched: {counts}")
+
+
 # ------------------------------------------------------------------ parallel
 MOE_TRAIN_SHAPE = (8, 1024)   # B, S of the gpt2-medium-moe step
 MOE_PARITY_SHAPE = (2, 128)
@@ -5417,13 +5671,14 @@ def phase_runtime(generated: dict, launches: dict) -> None:
         raise AssertionError(f"runtime: processes outlived shutdown (killed): {left}")
 
 
-def _end_session(controller: int, session_dir: str, before_shutdown=None) -> list:
+def _end_session(controller: int, session_dir: str, before_shutdown=None, known: dict | None = None) -> list:
     """Shut the runtime down (after `before_shutdown`, e.g. Serve's), wait
-    up to 30 s for this session's processes to end, kill any left and
-    return them as (pid, parent, command)."""
+    up to 30 s for this session's processes to end (the controller's
+    descendants and `known`, {pid: start time} taken earlier), kill any
+    left and return them as (pid, parent, command)."""
     import ray_tpu_torch as rt
 
-    known = _descendants(controller)
+    known = {**(known or {}), **_descendants(controller)}
     try:
         if before_shutdown is not None:
             before_shutdown()
@@ -5848,6 +6103,9 @@ def main(argv=None) -> int:
     if "tune" in phases:
         with wall("tune"):
             phase_tune(launches)
+    if "autoscaler" in phases:
+        with wall("autoscaler"):
+            phase_autoscaler(launches)
     if "parallel" in phases:
         with wall("parallel"):
             phase_parallel(launches)

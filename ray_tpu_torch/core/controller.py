@@ -3306,6 +3306,10 @@ class Controller:
         demand = {k: float(v) for k, v in (msg.get("resources") or {}).items()}
         need_tpu = demand.get(ACCELERATOR, 0) > 0  # reference: "TPU", ray_tpu/core/controller.py:3305
         count = max(1, min(int(msg.get("count", 1)), 16))
+        # Autoscaler demand is the submitter's waiting tasks, not the leases
+        # it asks for ahead of them (reference: `count` for both,
+        # ray_tpu/core/controller.py:3327,3335).
+        unmet = min(count, max(0, int(msg.get("backlog", count))))
         # PARK until at least one grant or the deadline: a cold pool takes a
         # spawn round (~0.5s) to produce grantable workers — client-side
         # retry backoff turned that into multi-second task latency.
@@ -3315,25 +3319,34 @@ class Controller:
         # LocalDispatchers lease only their OWN node's workers (the point of
         # the handoff is node-local dispatch); submitters lease anywhere.
         node_filter = msg.get("node_id")
+        # A node that joins while the request parks (the autoscaler's
+        # scale-up) gets its spawn now, not after the deadline's re-request
+        # (reference: spawn=first only, ray_tpu/core/controller.py:3318).
+        # (A re-registered node id is a new NodeState: compare the records;
+        # `seen` holds them, so their ids are not reused meanwhile.)
+        seen = list(self.nodes.values())
         while True:
+            seen_ids = {id(n) for n in seen}
+            joined = any(id(n) not in seen_ids for n in self.nodes.values())
             grants = self._try_grant_leases(
-                meta, demand, need_tpu, count, spawn=first,
+                meta, demand, need_tpu, count, spawn=first or joined,  # reference: spawn=first
                 node_filter=node_filter,
             )
             first = False
+            seen = list(self.nodes.values())
             if grants or time.monotonic() >= deadline:
                 break
             # The PARKED demand is autoscaler load — record it now, not
             # after the park (scale-up is what un-parks a full cluster).
-            self._lease_backlog[bkey] = (demand, count, time.monotonic())
+            self._lease_backlog[bkey] = (demand, unmet, time.monotonic())  # reference: count
             try:
                 await asyncio.wait_for(self._worker_arrival.wait(), 0.25)
             except (asyncio.TimeoutError, TimeoutError):
                 pass
         # Feed the autoscaler load metrics (drivers re-request while
         # buffered, refreshing the entry; satisfied requests clear it).
-        if len(grants) < count:
-            self._lease_backlog[bkey] = (demand, count - len(grants), time.monotonic())
+        if len(grants) < unmet:  # reference: count
+            self._lease_backlog[bkey] = (demand, unmet - len(grants), time.monotonic())
         else:
             self._lease_backlog.pop(bkey, None)
         if grants:

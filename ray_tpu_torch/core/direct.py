@@ -499,10 +499,17 @@ class DirectCallManager:
                 lst = self._leases.get(key, ())
                 existing = bool(lst)
                 oversub = any(l.inflight > 1 for l in lst)
+                # The tasks that would start now on more workers: parked
+                # ones and those queued behind a running one. The autoscaler
+                # reads them as demand, not the LEASE_WANT leases asked for
+                # (reference: no such count, ray_tpu/core/direct.py:504).
+                waiting = len(self._send_buffer.get(key, ())) + sum(
+                    max(0, l.inflight - 1) for l in lst)
             try:
                 resp = await self.backend.conn.request(
                     {"type": "request_lease", "resources": resources,
                      "count": LEASE_WANT,
+                     "backlog": waiting,  # reference: none, ray_tpu/core/direct.py:504
                      # Cold keys wait out a spawn round; OVERSUBSCRIBED keys
                      # park briefly for freed capacity (arriving grants steal
                      # queued work back); pure grow probes must not park —

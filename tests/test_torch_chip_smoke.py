@@ -604,3 +604,33 @@ def test_tune_phase_rehearsal_on_the_cpu():
     finally:
         torch.set_num_threads(threads)
     assert set(launches["tune"]) == set(chip_smoke._kernels()) and not any(launches["tune"].values())
+
+
+def test_autoscaler_phase_is_right_after_tune():
+    assert chip_smoke.PHASES.index("autoscaler") == chip_smoke.PHASES.index("tune") + 1
+    spec, tune = chip_smoke.AutoscalerSpec(), chip_smoke.TuneSpec()
+    assert (spec.model, spec.prompt, spec.new, spec.prompt_seed) == (tune.model, tune.prompt, tune.new,
+                                                                     tune.prompt_seed)
+    assert (spec.head_cpus, spec.node_types, spec.max_workers, spec.idle_timeout_s, spec.device) == \
+        (1, {"cpu": {"resources": {"CPU": 4}, "min_workers": 0, "max_workers": 2},
+             "gpu": {"resources": {"CPU": 2, "GPU": 1}, "min_workers": 0, "max_workers": 1}}, 3, 2.0, None)
+
+
+def test_autoscaler_phase_rehearsal_on_the_cpu():
+    """The autoscaler phase's control flow on the CPU with a tiny model, one
+    torch thread, a shorter idle timeout, and a `gpu` node type that
+    advertises a GPU with no card behind it (the task computes on the CPU):
+    the lone CPU task launches exactly one `cpu` node and runs there, the
+    GPU task exactly one `gpu` node with the in-process greedy tokens, both
+    scale down and no process of the session is left; 0 launches of each
+    kernel (their plain versions run on the CPU)."""
+    spec = chip_smoke.AutoscalerSpec(
+        model=("llama-7b", {**TINY, "attn_impl": "flash", "max_seq": 32}, (2, 16)), prompt=(2, 8), new=4,
+        idle_timeout_s=0.5, device="cpu", threads=1)
+    threads = torch.get_num_threads()
+    launches = {}
+    try:
+        chip_smoke.phase_autoscaler(launches, spec)
+    finally:
+        torch.set_num_threads(threads)
+    assert set(launches["autoscaler"]) == set(chip_smoke._kernels()) and not any(launches["autoscaler"].values())

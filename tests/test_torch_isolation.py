@@ -139,6 +139,10 @@ RUNTIME_COPY = (
     "tune/search_space.py", "tune/schedulers.py", "tune/search.py", "tune/tuner.py", "tune/__init__.py",
     "workflow/storage.py", "workflow/executor.py", "workflow/event_listener.py", "workflow/__init__.py",
     "scripts/__init__.py", "scripts/cli.py", "job_submission.py", "util/multiprocessing.py", "util/joblib.py",
+    # The autoscaler: load metrics, the demand packer, the node providers
+    # (the fake multi-node one, KubeRay's and TPU-VM's with their in-memory
+    # doubles), the update loop and request_resources.
+    "autoscaler",
 )
 # Files the port names otherwise: its path -> the reference's.
 RENAMED = {"rllib/podracer/torch_env.py": "rllib/podracer/jax_env.py"}
@@ -148,8 +152,9 @@ PORT_ONLY = {"core/devices.py", "core/host_names.py", "rllib/utils/tree.py"}
 DIVERGES = {
     "core/api.py": "init(num_gpus=...) sets the GPU resource",
     "core/controller.py": "GPU worker kind: resource key, device pinning, GPU lease spawns; GPU workers forked "
-                          "from the template too",
-    "core/direct.py": "GPU worker kind: resource key of a lease",
+                          "from the template too; the lease backlog holds the submitter's waiting tasks, and "
+                          "a parked lease spawns on a node that joins",
+    "core/direct.py": "GPU worker kind: resource key of a lease; a lease request names its waiting tasks",
     "core/node_agent.py": "GPU worker kind: device pinning; GPU workers forked from the template too",
     "core/forkserver.py": "template pre-imports torch, no card; reports its state; GPU workers fork from it too",
     "core/exceptions.py": "an error that crossed two tasks unpickles",
@@ -259,6 +264,8 @@ DIVERGES = {
     "scripts/cli.py": "session_latest under TMPDIR (host_names.SESSION_ROOT): the address, its error text, the "
                       "docstring",
     "job_submission.py": "session_latest under TMPDIR (host_names.SESSION_ROOT)",
+    "autoscaler/resource_demand_scheduler.py": "GPU demand packs first and GPU node types sort last (the "
+                                               "reference weighs its own accelerator key, TPU)",
 }
 # Diverging files that are ports, held by their structure, not line by line:
 # a class (its methods in the reference's order, its step()'s calls in
@@ -509,6 +516,7 @@ def test_importing_the_port_loads_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.rllib.podracer.transport\n"
         "import ray_tpu_torch.tune, ray_tpu_torch.workflow, ray_tpu_torch.scripts.cli\n"
         "import ray_tpu_torch.job_submission, ray_tpu_torch.util, ray_tpu_torch.util.multiprocessing\n"
+        "import ray_tpu_torch.autoscaler, ray_tpu_torch.autoscaler.kuberay_provider\n"
         "new = set(sys.modules) - before\n"
         # joblib is imported only by its backend's module, on request.
         f"print(sorted(m for m in new if m.split('.')[0] in {FORBIDDEN + ('joblib',)!r}\n"
